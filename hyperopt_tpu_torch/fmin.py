@@ -1,0 +1,272 @@
+"""``fmin``: the serial optimization loop and the public API.
+
+Counterpart of ``hyperopt_tpu/fmin.py`` for the hosted, serial loop: one
+trial is suggested, evaluated in-process and recorded at a time.  The
+plugin boundaries are the same: ``algo`` is any
+``suggest(new_ids, domain, trials, seed) -> docs`` callable (bind
+hyperparameters with ``functools.partial``), ``trials`` a
+:class:`~hyperopt_tpu_torch.base.Trials`.
+
+``device`` selects where the suggest algorithms run.  It defaults to CUDA
+and raises when there is none; pass ``device="cpu"`` to run on the CPU.
+"""
+
+from __future__ import annotations
+
+import logging
+import numbers
+import os
+import pickle
+import time
+
+import numpy as np
+
+from . import base
+from .base import (
+    Ctrl,
+    Domain,
+    JOB_STATE_DONE,
+    JOB_STATE_ERROR,
+    JOB_STATE_NEW,
+    JOB_STATE_RUNNING,
+    Trials,
+    coarse_utcnow,
+)
+from .exceptions import AllTrialsFailed
+from .space import compile_space, resolve_device
+from .utils.progress import default_callback, no_progress_callback
+
+logger = logging.getLogger(__name__)
+
+
+def space_eval(space, hp_assignment: dict):
+    """Substitute a ``{label: value}`` assignment (as returned by ``fmin``
+    or ``trials.argmin``; choice values are branch indices) into a space."""
+    return compile_space(space).eval_point(hp_assignment)
+
+
+def generate_trials_to_calculate(points, exp_key=None):
+    """A ``Trials`` seeded with ``{label: value}`` points to evaluate first."""
+    trials = Trials(exp_key=exp_key)
+    docs = []
+    for tid, pt in enumerate(points):
+        doc = base.new_trial_doc(tid, exp_key=exp_key)
+        doc["misc"]["idxs"] = {k: [tid] for k in pt}
+        doc["misc"]["vals"] = {k: [v] for k, v in pt.items()}
+        docs.append(doc)
+    trials.insert_trial_docs(docs)
+    trials.refresh()
+    return trials
+
+
+class FMinIter:
+    """The serial loop: suggest one trial, evaluate it, record it, until
+    ``max_evals`` trials are done or a stop condition fires."""
+
+    catch_eval_exceptions = False
+    pickle_protocol = -1
+
+    def __init__(self, algo, domain, trials, rstate=None,
+                 early_stop_fn=None, trials_save_file="", max_evals=None,
+                 timeout=None, loss_threshold=None, show_progressbar=True):
+        self.algo = algo
+        self.domain = domain
+        self.trials = trials
+        self.rstate = np.random.default_rng() if rstate is None else rstate
+        self.early_stop_fn = early_stop_fn
+        self.early_stop_args: list = []
+        self.trials_save_file = trials_save_file
+        self.max_evals = max_evals
+        self.timeout = timeout
+        self.loss_threshold = loss_threshold
+        self.start_time = time.time()
+        self.show_progressbar = show_progressbar
+
+    def serial_evaluate(self):
+        for trial in self.trials._dynamic_trials:
+            if trial["state"] != JOB_STATE_NEW:
+                continue
+            trial["state"] = JOB_STATE_RUNNING
+            trial["book_time"] = coarse_utcnow()
+            ctrl = Ctrl(self.trials, current_trial=trial)
+            try:
+                spec = base.spec_from_misc(trial["misc"])
+                result = self.domain.evaluate(spec, ctrl)
+            except Exception as e:
+                logger.error("job exception: %s", e)
+                trial["state"] = JOB_STATE_ERROR
+                trial["misc"]["error"] = (type(e).__name__, str(e))
+                trial["refresh_time"] = coarse_utcnow()
+                if not self.catch_eval_exceptions:
+                    self.trials.refresh()
+                    raise
+            else:
+                trial["state"] = JOB_STATE_DONE
+                trial["result"] = result
+                trial["refresh_time"] = coarse_utcnow()
+        self.trials.refresh()
+
+    def _stopped(self, n_done):
+        if self.max_evals is not None and n_done >= self.max_evals:
+            return True
+        if self.timeout is not None and \
+                time.time() - self.start_time >= self.timeout:
+            return True
+        if self.loss_threshold is not None:
+            try:
+                if self.trials.best_trial["result"]["loss"] <= \
+                        self.loss_threshold:
+                    return True
+            except AllTrialsFailed:
+                pass
+        return False
+
+    def run_one_batch(self):
+        """Suggest, evaluate and record one trial (or evaluate the queued
+        ones).  Returns True when the algo is exhausted or early stop
+        fired."""
+        trials = self.trials
+        stopped = False
+        qlen = trials.count_by_state_unsynced((JOB_STATE_NEW,
+                                               JOB_STATE_RUNNING))
+        remaining = (self.max_evals - self.n_enqueued()
+                     if self.max_evals is not None else 1)
+        if qlen == 0 and remaining > 0:
+            seed = int(self.rstate.integers(2 ** 31 - 1))
+            new_ids = trials.new_trial_ids(1)
+            trials.refresh()
+            new_trials = self.algo(new_ids, self.domain, trials, seed)
+            if new_trials is None or len(new_trials) == 0:
+                stopped = True
+            else:
+                trials.insert_trial_docs(new_trials)
+                trials.refresh()
+        self.serial_evaluate()
+        self._save_trials()
+        if self.early_stop_fn is not None:
+            stop, kwargs = self.early_stop_fn(self.trials,
+                                              *self.early_stop_args)
+            self.early_stop_args = kwargs
+            if stop:
+                logger.info("early stop triggered")
+                stopped = True
+        return stopped
+
+    def n_done(self):
+        return self.trials.count_by_state_unsynced(
+            (JOB_STATE_DONE, JOB_STATE_ERROR))
+
+    def n_enqueued(self):
+        return self.trials.count_by_state_unsynced(
+            (JOB_STATE_NEW, JOB_STATE_RUNNING, JOB_STATE_DONE,
+             JOB_STATE_ERROR))
+
+    def _save_trials(self):
+        if not self.trials_save_file:
+            return
+        tmp = f"{self.trials_save_file}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as f:
+            pickle.dump(self.trials, f, protocol=self.pickle_protocol)
+        os.replace(tmp, self.trials_save_file)
+
+    def exhaust(self):
+        """Run until ``max_evals`` complete or a stop condition fires."""
+        progress_ctx = default_callback if self.show_progressbar \
+            else no_progress_callback
+        with progress_ctx(initial=self.n_done(), total=self.max_evals) as prog:
+            while not self._stopped(self.n_done()):
+                before = self.n_done()
+                stopped = self.run_one_batch()
+                after = self.n_done()
+                prog.update(after - before)
+                try:
+                    prog.postfix(self.trials.best_trial["result"]["loss"])
+                except AllTrialsFailed:
+                    pass
+                if stopped or after == before:
+                    break
+        return self
+
+
+def fmin(fn, space, algo=None, max_evals=None,
+         timeout=None, loss_threshold=None,
+         trials=None, rstate=None, pass_expr_memo_ctrl=None,
+         catch_eval_exceptions=False,
+         verbose=True, return_argmin=True,
+         points_to_evaluate=None,
+         show_progressbar=True, early_stop_fn=None,
+         trials_save_file="", device=None):
+    """Minimize ``fn`` over ``space`` using ``algo`` (default TPE).
+
+    ``fn`` returns a float loss or a result dict with ``loss``/``status``;
+    ``max_evals`` bounds the trials, ``timeout`` the wall-clock seconds;
+    ``loss_threshold`` stops at a good-enough loss; ``rstate`` is a
+    ``np.random.Generator`` or an int seed; ``points_to_evaluate`` is a
+    list of ``{label: value}`` dicts run first; ``trials_save_file`` is a
+    pickle checkpoint, resumed when it exists; ``early_stop_fn(trials,
+    *args) -> (stop, args)``.  ``device`` is where the suggest algorithms
+    run (default CUDA; ``"cpu"`` runs them on the CPU).  Returns the best
+    point (``return_argmin``) or the best loss.
+    """
+    dev = resolve_device(device)
+    if algo is None:
+        from . import tpe
+
+        algo = tpe.suggest
+    if rstate is None:
+        env_seed = os.environ.get("HYPEROPT_FMIN_SEED", "")
+        rstate = np.random.default_rng(int(env_seed) if env_seed else None)
+    elif isinstance(rstate, (int, np.integer)):
+        rstate = np.random.default_rng(int(rstate))
+
+    validate_timeout(timeout)
+    validate_loss_threshold(loss_threshold)
+
+    if trials_save_file and os.path.exists(trials_save_file) and trials is None:
+        with open(trials_save_file, "rb") as f:
+            trials = pickle.load(f)
+
+    if trials is None:
+        if points_to_evaluate is None:
+            trials = Trials()
+        else:
+            if not isinstance(points_to_evaluate, list):
+                raise ValueError("points_to_evaluate must be a list of dicts")
+            trials = generate_trials_to_calculate(points_to_evaluate)
+
+    domain = Domain(fn, space, pass_expr_memo_ctrl=pass_expr_memo_ctrl)
+    domain.cs.device = dev
+
+    rval = FMinIter(algo, domain, trials, rstate=rstate,
+                    early_stop_fn=early_stop_fn,
+                    trials_save_file=trials_save_file,
+                    max_evals=max_evals, timeout=timeout,
+                    loss_threshold=loss_threshold,
+                    show_progressbar=show_progressbar and verbose)
+    rval.catch_eval_exceptions = catch_eval_exceptions
+    rval.exhaust()
+    rval._save_trials()
+
+    if return_argmin:
+        if len(trials.trials) == 0:
+            raise AllTrialsFailed(
+                "There are no evaluation tasks, cannot return argmin of "
+                "task losses.")
+        return trials.argmin
+    if len(trials) > 0:
+        return trials.best_trial["result"]["loss"]
+    return None
+
+
+def validate_timeout(timeout):
+    if timeout is not None and (not isinstance(timeout, numbers.Real)
+                                or timeout <= 0):
+        raise Exception(f"The timeout argument should be None or a positive "
+                        f"value. Given value: {timeout}")
+
+
+def validate_loss_threshold(loss_threshold):
+    if loss_threshold is not None and not isinstance(loss_threshold,
+                                                     numbers.Real):
+        raise Exception(f"The loss_threshold argument should be None or a "
+                        f"numeric value. Given value: {loss_threshold}")

@@ -1,0 +1,563 @@
+"""Tree-structured Parzen Estimator, in PyTorch.
+
+Counterpart of ``hyperopt_tpu/tpe.py``, on its default lowering.  Defaults:
+``prior_weight=1.0, n_startup_jobs=20, n_EI_candidates=24, gamma=0.25,
+linear_forgetting=25``.
+
+1. Until ``n_startup_jobs`` trials finish, propose by random search.
+2. γ-split: the best ``n_below = min(ceil(gamma·sqrt(N)), LF)`` finished
+   trials (``split='quantile'``: ``ceil(gamma·N)``) form the below set.
+3. Per hyperparameter, fit adaptive-Parzen mixtures to the below and above
+   observations (one batched fit for both, ``ops/step_ei.py``).
+4. Draw ``n_EI_candidates`` per column from the below model and keep the
+   one maximizing ``log p(x|below) − log p(x|above)``, independently per
+   hyperparameter.
+
+The step runs on the space's device over the history padded to a
+power-of-two bucket.  Continuous columns come in up to three groups:
+density columns, scored by the CUDA kernel ``ops/ei_scores.py`` (the
+widest block of the step); quantized columns with a small bounded lattice,
+scored once per lattice point and gathered; other quantized columns,
+scored per candidate by their bin mass.  Categorical columns use a
+weighted-count posterior.
+
+Randomness: each step's uniforms come from a ``torch.Generator`` seeded
+from the suggest seed, or are handed in as ``noise`` (tests give the port
+the uniforms the JAX step draws).
+"""
+
+from __future__ import annotations
+
+import math
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from . import base, rand
+from .ops.ei_scores import ei_scores
+from .ops.gmm import gmm_log_qmass, gmm_sample, icdf_pick, onehot_lookup
+from .ops.parzen import forgetting_weights
+from .ops.step_ei import ei_argmax_stats, fused_parzen_fit
+from .space import (
+    _MAX_RANDINT_RANGE,
+    CATEGORICAL,
+    LOGNORMAL,
+    LOGUNIFORM,
+    QLOGNORMAL,
+    QLOGUNIFORM,
+    QNORMAL,
+    QUNIFORM,
+    RANDINT,
+    UNIFORM,
+    UNIFORMINT,
+    CompiledSpace,
+    make_generator,
+    resolve_device,
+)
+
+_default_prior_weight = 1.0
+_default_n_startup_jobs = 20
+_default_n_EI_candidates = 24
+_default_gamma = 0.25
+_default_linear_forgetting = 25
+
+_TINY = 1e-12
+_LOG_KINDS = (LOGUNIFORM, QLOGUNIFORM, LOGNORMAL, QLOGNORMAL)
+# Finite stand-in for a -inf score: never wins an argmax, never NaNs.
+_NEG = -3e38
+# A bounded quantized column's support is a lattice of at most this many
+# points; above it, candidates are scored one by one.
+_LATTICE_CAP = 4096
+# Largest [C, chunk, K] temporary of the per-candidate quantized scorer.
+_Q_ELEMS = 1 << 24
+
+
+class _ContGroup:
+    """Static arrays (numpy) for one group of continuous columns.
+
+    ``is_q`` selects density or quantized-mass scoring.  Bounded q-columns
+    carry lattice metadata (``lat_k0``, ``lat_len``: values ``k·q`` for
+    ``k`` in ``[lat_k0, lat_k0 + lat_len)``)."""
+
+    def __init__(self, specs, is_q):
+        self.is_q = is_q
+        self.use_lattice = False
+        self.pids = np.asarray([s.pid for s in specs], np.int64)
+        n = len(specs)
+        self.is_log = np.zeros(n, bool)
+        self.q = np.zeros(n, np.float32)
+        self.fit_lo = np.full(n, -np.inf, np.float32)
+        self.fit_hi = np.full(n, np.inf, np.float32)
+        self.prior_mu = np.zeros(n, np.float32)
+        self.prior_sigma = np.ones(n, np.float32)
+        self.clip_lo = np.full(n, -np.inf, np.float32)
+        self.clip_hi = np.full(n, np.inf, np.float32)
+        self.lat_k0 = np.zeros(n, np.int64)
+        self.lat_len = np.zeros(n, np.int64)
+        for i, s in enumerate(specs):
+            self.is_log[i] = s.kind in _LOG_KINDS
+            if s.q:
+                self.q[i] = s.q
+            if s.kind in (UNIFORM, LOGUNIFORM, QUNIFORM, QLOGUNIFORM):
+                lo, hi = s.low, s.high  # log kinds: bounds in log space
+                if s.kind in (QUNIFORM, QLOGUNIFORM):
+                    # Float math first: exp(high) or (high-low)/q may be
+                    # huge (even inf) for legal spaces.
+                    if s.kind == QUNIFORM:
+                        k0f = np.floor(s.low / s.q + 0.5)
+                        k1f = np.floor(s.high / s.q + 0.5)
+                    else:
+                        k0f = np.floor(np.exp(s.low) / s.q + 0.5)
+                        k1f = np.floor(np.exp(s.high) / s.q + 0.5)
+                    if np.isfinite(k1f) and np.isfinite(k0f) \
+                            and k1f - k0f < _LATTICE_CAP:
+                        self.lat_k0[i] = int(k0f)
+                        self.lat_len[i] = int(k1f) - int(k0f) + 1
+            elif s.kind == UNIFORMINT:
+                lo, hi = s.low - 0.5, s.high + 0.5
+                self.q[i] = 1.0
+                self.clip_lo[i], self.clip_hi[i] = s.low, s.high
+                self.lat_k0[i] = int(s.low)
+                self.lat_len[i] = int(s.high - s.low) + 1
+            elif s.kind == RANDINT:
+                # Wide randint: a quantized uniform over [low, high).
+                lo, hi = s.low - 0.5, s.high - 0.5
+                self.q[i] = 1.0
+                self.clip_lo[i], self.clip_hi[i] = s.low, s.high - 1
+                self.lat_k0[i] = int(s.low)
+                self.lat_len[i] = int(s.high - s.low)
+            else:
+                # Normal family: unbounded, prior (mu, sigma) in fit space.
+                self.prior_mu[i] = s.mu
+                self.prior_sigma[i] = s.sigma
+                if s.q:
+                    # Quantized normal tails saturate at the last f32-exact
+                    # lattice point, as the sampler's do.
+                    self.clip_hi[i] = _MAX_RANDINT_RANGE * s.q
+                    self.clip_lo[i] = (0.0 if s.kind == QLOGNORMAL
+                                       else -self.clip_hi[i])
+                continue
+            self.fit_lo[i], self.fit_hi[i] = lo, hi
+            # Uniform prior: mid-point mean, full-width sigma.
+            self.prior_mu[i] = 0.5 * (lo + hi)
+            self.prior_sigma[i] = hi - lo
+
+    def __len__(self):
+        return len(self.pids)
+
+    def tensors(self, device):
+        """The group's arrays as tensors on ``device``."""
+        names = ("pids", "is_log", "q", "fit_lo", "fit_hi", "prior_mu",
+                 "prior_sigma", "clip_lo", "clip_hi", "lat_k0")
+        out = {k: torch.as_tensor(getattr(self, k), device=device)
+               for k in names}
+        if self.use_lattice:
+            out["lat_vals"] = torch.as_tensor(self.lat_vals, device=device)
+        return SimpleNamespace(**out)
+
+
+class _TpeKernel:
+    """The TPE suggest step for a fixed (space, history bucket, n_cand, LF,
+    split, categorical prior, device)."""
+
+    def __init__(self, cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
+                 split: str = "sqrt", cat_prior: str = "sqrt", device="cuda"):
+        self.cs = cs
+        self.n_cap = n_cap
+        self.n_cand = n_cand
+        self.lf = lf
+        if split not in ("sqrt", "quantile"):
+            raise ValueError(f"split must be 'sqrt' or 'quantile', got {split!r}")
+        self.split = split
+        if cat_prior not in ("sqrt", "const"):
+            raise ValueError(
+                f"cat_prior must be 'sqrt' or 'const', got {cat_prior!r}")
+        self.cat_prior = cat_prior
+        self.device = torch.device(device)
+
+        cont_q, cont_n, cat = [], [], []
+        for s in cs.params:
+            if s.kind == CATEGORICAL or (s.kind == RANDINT
+                                         and s.probs is not None):
+                cat.append(s)
+            elif s.kind in (QUNIFORM, QLOGUNIFORM, QNORMAL, QLOGNORMAL,
+                            UNIFORMINT, RANDINT):
+                cont_q.append(s)
+            else:
+                cont_n.append(s)
+        probe = _ContGroup(cont_q, is_q=True)
+        lattice_ok = (probe.lat_len > 0) & (probe.lat_len <= _LATTICE_CAP)
+        q_lat = [s for s, okl in zip(cont_q, lattice_ok) if okl]
+        q_full = [s for s, okl in zip(cont_q, lattice_ok) if not okl]
+        lat_group = _ContGroup(q_lat, is_q=True)
+        if len(lat_group):
+            lat_group.use_lattice = True
+            lmax = int(lat_group.lat_len.max())
+            # Lattice values in f64, then one rounding to f32.
+            lat_group.lat_vals = (
+                (lat_group.lat_k0[:, None] + np.arange(lmax)[None, :])
+                * lat_group.q[:, None].astype(np.float64)
+            ).astype(np.float32)
+        self.groups = [g for g in (_ContGroup(cont_n, is_q=False),
+                                   _ContGroup(q_full, is_q=True),
+                                   lat_group)
+                       if len(g)]
+        self._gt = [g.tensors(self.device) for g in self.groups]
+
+        dev = self.device
+        self.cat_pids = np.asarray([s.pid for s in cat], np.int64)
+        self.cat_kmax = max([s.n_options for s in cat], default=1)
+        priors = np.zeros((len(cat), self.cat_kmax), np.float32)
+        offsets = np.zeros(len(cat), np.float32)
+        for i, s in enumerate(cat):
+            priors[i, : s.n_options] = s.probs
+            if s.kind == RANDINT:
+                offsets[i] = s.low
+        nopts = np.asarray([s.n_options for s in cat], np.float32)
+        self._cat = SimpleNamespace(
+            pids=torch.as_tensor(self.cat_pids, device=dev),
+            priors=torch.as_tensor(priors, device=dev),
+            nopts=torch.as_tensor(nopts, device=dev),
+            last=torch.as_tensor(nopts.astype(np.int64) - 1, device=dev),
+            offsets=torch.as_tensor(offsets, device=dev),
+            options=torch.arange(self.cat_kmax, dtype=torch.float32,
+                                 device=dev))
+
+    # -- shared helpers ------------------------------------------------------
+
+    def _split(self, loss, ok, gamma):
+        """γ-split by ranked loss: ``(below[N], above[N])`` bool masks.
+
+        Ties break by trial index; NaN losses rank with the +inf padding."""
+        n_ok = torch.sum(ok)
+        n_f = n_ok.to(torch.float32)
+        g = torch.tensor(gamma, dtype=torch.float32, device=loss.device)
+        if self.split == "sqrt":
+            n_below = torch.ceil(g * torch.sqrt(n_f))
+        else:
+            n_below = torch.ceil(g * n_f)
+        n_below = torch.minimum(n_below.to(torch.int64),
+                                torch.clamp_max(n_ok, self.lf))
+        loss = torch.where(torch.isnan(loss),
+                           torch.full_like(loss, math.inf), loss)
+        # Only the k = min(lf, N) smallest losses can enter the below set.
+        # A stable sort keeps the lower index first on ties, the order
+        # lax.top_k gives in the JAX step.
+        k = min(self.lf, loss.shape[0])
+        idx = torch.argsort(loss, stable=True)[:k]
+        below = torch.zeros_like(ok)
+        below[idx] = torch.arange(k, device=loss.device) < n_below
+        below = below & ok
+        return below, ok & ~below
+
+    def _set_weights(self, set_mask, act):
+        """Per-column observation weights for one split set:
+        ``(mask[N, C], weights[N, C], n_set[C])``; linear forgetting by
+        recency rank within the set, zero elsewhere."""
+        m = set_mask[:, None] & act
+        n_set = torch.sum(m, dim=0)
+        rank_in = torch.cumsum(m.to(torch.int64), dim=0) - 1
+        w = forgetting_weights(rank_in, n_set[None, :], self.lf)
+        return m, torch.where(m, w, torch.zeros_like(w)), n_set
+
+    # -- continuous columns --------------------------------------------------
+
+    def _cont_fit(self, gt, vals, active, below, above, prior_weight):
+        """Below/above fits for one group:
+        ``(lwb, mub, sgb, lwa, mua, sga)`` (log-weights, means, sigmas)."""
+        z = vals[:, gt.pids]
+        z = torch.where(gt.is_log, torch.log(torch.clamp_min(z, _TINY)), z)
+        act = active[:, gt.pids]
+        cap_b = min(self.lf, self.n_cap) + 1
+        cap_a = self.n_cap + 1
+
+        def set_obs(set_mask):
+            m, w, n_set = self._set_weights(set_mask, act)
+            return torch.where(m, z, torch.full_like(z, math.inf)), w, n_set
+
+        return fused_parzen_fit(*set_obs(below), *set_obs(above),
+                                gt.prior_mu, gt.prior_sigma, prior_weight,
+                                cap_b, cap_a)
+
+    def _cont_draw(self, gt, lwb, mub, sgb, uc, u):
+        """Candidate draws ``zc [C, n_cand]`` (fit space) from the below
+        model."""
+        return gmm_sample(lwb, mub, sgb, gt.fit_lo, gt.fit_hi, uc, u)
+
+    def _cont_scores(self, g, gt, vals, active, below, above, prior_weight,
+                     uc, u):
+        """Candidate values + EI scores: ``([C, n_cand], [C, n_cand])``."""
+        fits = self._cont_fit(gt, vals, active, below, above, prior_weight)
+        zc = self._cont_draw(gt, *fits[:3], uc, u)
+        return self._cont_ei(g, gt, zc, fits)
+
+    def _cont_ei(self, g, gt, zc, fits):
+        """Natural-space values + EI scores from fit-space draws ``zc``."""
+        lwb, mub, sgb, lwa, mua, sga = fits
+        x_nat = torch.where(gt.is_log[:, None], torch.exp(zc), zc)
+        if not g.is_q:
+            # Density columns: the CUDA kernel (plain twin on the CPU).
+            return x_nat, ei_scores(zc, lwb, mub, sgb, lwa, mua, sga)
+        q = gt.q[:, None]
+        v = torch.round(x_nat / q) * q
+        v = torch.minimum(torch.maximum(v, gt.clip_lo[:, None]),
+                          gt.clip_hi[:, None])
+        is_log = gt.is_log[:, None]
+
+        def q_edges(vals_nat):
+            el, eh = vals_nat - 0.5 * q, vals_nat + 0.5 * q
+            ninf = torch.full_like(el, -math.inf)
+            zl = torch.where(is_log,
+                             torch.where(el > 0,
+                                         torch.log(torch.clamp_min(el, _TINY)),
+                                         ninf),
+                             el)
+            zh = torch.where(is_log, torch.log(torch.clamp_min(eh, _TINY)), eh)
+            return zl, zh
+
+        def ei_q(zl, zh):
+            return (gmm_log_qmass(zl, zh, lwb, mub, sgb, gt.fit_lo, gt.fit_hi)
+                    - gmm_log_qmass(zl, zh, lwa, mua, sga, gt.fit_lo,
+                                    gt.fit_hi))
+
+        if g.use_lattice:
+            # Score each lattice point once, gather per candidate.  ei_lat
+            # may hold -inf at selectable far-tail points (zero below
+            # mass); the finite fill keeps "never wins" exact.
+            ei_lat = ei_q(*q_edges(gt.lat_vals))                   # [C, L]
+            idx = torch.round(v / q).to(torch.int64) - gt.lat_k0[:, None]
+            idx = torch.clamp(idx, 0, gt.lat_vals.shape[1] - 1)
+            return v, onehot_lookup(idx, ei_lat, _NEG)
+        zl, zh = q_edges(v)
+        c, n = v.shape
+        chunk = max(1, _Q_ELEMS // max(1, c * lwa.shape[-1]))
+        ei = torch.cat([ei_q(zl[:, i:i + chunk], zh[:, i:i + chunk])
+                        for i in range(0, n, chunk)], dim=1)
+        return v, ei
+
+    # -- categorical columns -------------------------------------------------
+
+    def _cat_scores(self, u, vals, active, below, above, prior_weight):
+        """Candidate values (offset applied) + scores: ``([D, n_cand],
+        [D, n_cand])``, candidates drawn by inverse CDF from uniforms
+        ``u [D, n_cand]``."""
+        ct = self._cat
+        idx = vals[:, ct.pids] - ct.offsets                 # [N, D]
+        act = active[:, ct.pids]
+        onehot = (idx[:, :, None] == ct.options).to(torch.float32)
+
+        def log_post(set_mask):
+            # Weighted counts + prior pseudocounts; prior strength
+            # 'const': n_options·prior_weight (decays as 1/N), 'sqrt':
+            # prior_weight·sqrt(1+N) (decays as 1/sqrt(N)).
+            _, w, n_set = self._set_weights(set_mask, act)
+            counts = torch.einsum("nd,ndk->dk", w, onehot)
+            if self.cat_prior == "const":
+                strength = prior_weight * ct.nopts
+            else:
+                strength = prior_weight * torch.sqrt(
+                    1.0 + n_set.to(torch.float32))
+            pseudo = counts + ct.priors * strength[:, None]
+            return torch.log(pseudo / torch.sum(pseudo, dim=1, keepdim=True))
+
+        lpb = log_post(below)
+        lpa = log_post(above)
+        cdf = torch.cumsum(torch.exp(lpb), dim=1)           # [D, kmax]
+        cand = icdf_pick(u, cdf, ct.last[:, None])
+        # Padded options are -inf on both sides; clamping each side to a
+        # finite value keeps a selectable option with zero above-mass on
+        # top of the argmax (its true ratio is +inf).
+        diff = torch.clamp_min(lpb, _NEG) - torch.clamp_min(lpa, _NEG)
+        score = onehot_lookup(cand, diff)
+        return cand.to(torch.float32) + ct.offsets[:, None], score
+
+    # -- the step ------------------------------------------------------------
+
+    def draw_noise(self, generator=None):
+        """The step's uniforms: ``{"cont": [(uc, u) per group],
+        "cat": u}`` with ``[C, n_cand]`` / ``[D, n_cand]`` shapes."""
+
+        def r(rows):
+            return torch.rand((rows, self.n_cand), generator=generator,
+                              device=self.device, dtype=torch.float32)
+
+        return {"cont": [(r(len(g)), r(len(g))) for g in self.groups],
+                "cat": r(len(self.cat_pids))}
+
+    def _suggest_one_tel(self, vals, active, loss, ok, gamma, prior_weight,
+                         generator=None, noise=None):
+        """One proposal: ``(row[P], act[P], ei_best, ei_ties)``.
+
+        ``vals/active/loss/ok`` are the padded history on this kernel's
+        device.  ``ei_best`` is the winning EI score across the sheets and
+        ``ei_ties`` counts candidates tying their sheet's winner."""
+        if noise is None:
+            noise = self.draw_noise(generator)
+        below, above = self._split(loss, ok, gamma)
+        row = torch.zeros((self.cs.n_params,), dtype=torch.float32,
+                          device=self.device)
+        ei_best = torch.tensor(-math.inf, device=self.device)
+        ei_ties = torch.zeros((), dtype=torch.int32, device=self.device)
+        cols = []
+        for g, gt, (uc, u) in zip(self.groups, self._gt, noise["cont"]):
+            v, ei = self._cont_scores(g, gt, vals, active, below, above,
+                                      prior_weight, uc, u)
+            cols.append((gt.pids, v, ei))
+        if len(self.cat_pids):
+            cv, score = self._cat_scores(noise["cat"], vals, active, below,
+                                         above, prior_weight)
+            cols.append((self._cat.pids, cv, score))
+        for pids, v, ei in cols:
+            bi, best, ties = ei_argmax_stats(ei)
+            row[pids] = torch.gather(v, 1, bi[:, None])[:, 0]
+            ei_best = torch.maximum(ei_best, torch.max(best))
+            ei_ties = ei_ties + torch.sum(ties)
+        act_row = self.cs.active_mask(row[None, :])[0]
+        return row, act_row, ei_best, ei_ties
+
+    def __call__(self, vals, active, loss, ok, gamma, prior_weight,
+                 generator=None, noise=None):
+        row, act_row, _, _ = self._suggest_one_tel(
+            vals, active, loss, ok, gamma, prior_weight, generator, noise)
+        return row, act_row
+
+
+def _bucket(n: int) -> int:
+    """Power-of-two history capacity (min 32)."""
+    return max(32, 1 << max(n - 1, 1).bit_length())
+
+
+def get_kernel(cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
+               split: str = "sqrt", cat_prior: str = "sqrt",
+               device="cuda") -> _TpeKernel:
+    """The cached :class:`_TpeKernel` for these shapes and arguments."""
+    cache = cs.__dict__.setdefault("_tpe_kernels", {})
+    dev = torch.device(device)
+    k = (n_cap, n_cand, lf, split, cat_prior, str(dev))
+    if k not in cache:
+        cache[k] = _TpeKernel(cs, n_cap, n_cand, lf, split, cat_prior, dev)
+    return cache[k]
+
+
+def _padded_history(h, n_cap):
+    n, p = h["vals"].shape
+    vals = np.zeros((n_cap, p), np.float32)
+    active = np.zeros((n_cap, p), bool)
+    loss = np.full((n_cap,), np.inf, np.float32)
+    ok = np.zeros((n_cap,), bool)
+    vals[:n] = h["vals"]
+    active[:n] = h["active"]
+    loss[:n] = h["loss"]
+    ok[:n] = h["ok"]
+    return vals, active, loss, ok
+
+
+def _with_inflight_fantasies(h, trials, cs):
+    """NEW/RUNNING trials enter the history as constant-liar rows at the
+    mean observed loss, so a proposal is repelled from points already in
+    flight.  No-op when nothing is in flight."""
+    infl = getattr(trials, "inflight", None)
+    if infl is None:
+        return h
+    pv, pa = infl(cs)
+    if not len(pv):
+        return h
+    okl = h["loss"][h["ok"]]
+    lie = np.float32(okl.mean()) if okl.size else np.float32(0.0)
+    return dict(
+        vals=np.concatenate([h["vals"], pv]),
+        active=np.concatenate([h["active"], pa]),
+        loss=np.concatenate([h["loss"], np.full(len(pv), lie, np.float32)]),
+        ok=np.concatenate([h["ok"], np.ones(len(pv), bool)]))
+
+
+def suggest(new_ids, domain, trials, seed,
+            prior_weight=_default_prior_weight,
+            n_startup_jobs=_default_n_startup_jobs,
+            n_EI_candidates=_default_n_EI_candidates,
+            gamma=_default_gamma,
+            linear_forgetting=_default_linear_forgetting,
+            split="sqrt", cat_prior="sqrt"):
+    """TPE suggest: trial docs for ``new_ids``.  Bind hyperparameters with
+    ``functools.partial(tpe.suggest, n_EI_candidates=...)``."""
+    handle = suggest_dispatch(
+        new_ids, domain, trials, seed, prior_weight=prior_weight,
+        n_startup_jobs=n_startup_jobs, n_EI_candidates=n_EI_candidates,
+        gamma=gamma, linear_forgetting=linear_forgetting, split=split,
+        cat_prior=cat_prior)
+    return suggest_materialize(handle)
+
+
+def suggest_batch(new_ids, domain, trials, seed,
+                  prior_weight=_default_prior_weight,
+                  n_startup_jobs=_default_n_startup_jobs,
+                  n_EI_candidates=_default_n_EI_candidates,
+                  gamma=_default_gamma,
+                  linear_forgetting=_default_linear_forgetting,
+                  split="sqrt", cat_prior="sqrt"):
+    """Raw ``(vals[n, P], active[n, P])`` host arrays, without docs."""
+    return _force_rows(suggest_dispatch(
+        new_ids, domain, trials, seed, prior_weight=prior_weight,
+        n_startup_jobs=n_startup_jobs, n_EI_candidates=n_EI_candidates,
+        gamma=gamma, linear_forgetting=linear_forgetting, split=split,
+        cat_prior=cat_prior))
+
+
+def suggest_dispatch(new_ids, domain, trials, seed,
+                     prior_weight=_default_prior_weight,
+                     n_startup_jobs=_default_n_startup_jobs,
+                     n_EI_candidates=_default_n_EI_candidates,
+                     gamma=_default_gamma,
+                     linear_forgetting=_default_linear_forgetting,
+                     split="sqrt", cat_prior="sqrt"):
+    """Start the suggest computation on the space's device; returns a
+    handle for :func:`suggest_materialize`.  The history is read now.
+
+    Handle: ``(tag, cs, new_ids, rows, exp_key)`` with ``rows`` a host
+    ``(vals, active)`` pair ("ready": empty space or random startup) or a
+    device row not yet fetched ("pending")."""
+    cs = domain.cs
+    dev = resolve_device(cs.device)
+    n = len(new_ids)
+    exp_key = getattr(trials, "exp_key", None)
+    if n == 0 or cs.n_params == 0:
+        return ("ready", cs, list(new_ids),
+                (np.zeros((n, cs.n_params), np.float32),
+                 np.ones((n, cs.n_params), bool)), exp_key)
+    h = trials.history(cs)
+    if int(h["ok"].sum()) < n_startup_jobs:
+        v, _ = rand.suggest_batch(new_ids, domain, trials, seed)
+        v = v.cpu().numpy()
+        return ("ready", cs, list(new_ids), (v, cs.active_mask_host(v)),
+                exp_key)
+    if n != 1:
+        raise NotImplementedError(
+            "hyperopt_tpu_torch proposes one trial per TPE step; batched "
+            "proposals (the constant-liar scan) are not ported yet")
+    h = _with_inflight_fantasies(h, trials, cs)
+    kern = get_kernel(cs, _bucket(h["vals"].shape[0]), int(n_EI_candidates),
+                      int(linear_forgetting), split, cat_prior, dev)
+    hist = [torch.as_tensor(a, device=dev)
+            for a in _padded_history(h, kern.n_cap)]
+    gen = make_generator(dev, int(seed) % (2 ** 32))
+    row, _ = kern(*hist, gamma, prior_weight, generator=gen)
+    return ("pending", cs, list(new_ids), row, exp_key)
+
+
+def _force_rows(handle):
+    """A dispatch handle's proposals as host ``(vals[n, P], active[n, P])``;
+    a pending handle fetches only the values row (one device sync) and
+    rebuilds the mask on the host."""
+    tag, cs, _new_ids, rows = handle[:4]
+    if tag == "pending":
+        vals = rows.cpu().numpy()[None, :]
+        return vals, cs.active_mask_host(vals)
+    return rows
+
+
+def suggest_materialize(handle):
+    """Block on a :func:`suggest_dispatch` handle and package trial docs."""
+    _, cs, new_ids, _rows, exp_key = handle
+    vals, active = _force_rows(handle)
+    return base.docs_from_samples(cs, new_ids, vals, active, exp_key=exp_key)
