@@ -2,12 +2,13 @@
 
 The same public surface for the hosted TPE run — ``fmin``, the ``hp.*``
 search-space DSL, ``tpe``/``rand`` suggest algorithms, ``Trials`` — with
-the numeric core in PyTorch and the EI scoring of the TPE step in a CUDA
-kernel written for the H100 (``ops/ei_scores.py``).  Entry points run on
-CUDA unless the caller passes ``device="cpu"``.
+the numeric core in PyTorch and the EI scoring of the TPE step in CUDA
+kernels written for the H100 (``ops/ei_scores.py``), the history kept
+resident on the device (``history.py``).  Entry points run on CUDA unless
+the caller passes ``device="cpu"``.
 """
 
-from . import hp, rand, tpe  # noqa: F401
+from . import history, hp, rand, tpe  # noqa: F401
 from .base import (  # noqa: F401
     Ctrl,
     Domain,
@@ -39,7 +40,7 @@ from .utils.early_stop import no_progress_loss  # noqa: F401
 
 __all__ = [
     "fmin", "FMinIter", "space_eval", "generate_trials_to_calculate",
-    "hp", "tpe", "rand", "scope",
+    "hp", "tpe", "rand", "scope", "history",
     "Trials", "trials_from_docs", "Domain", "Ctrl",
     "CompiledSpace", "compile_space", "no_progress_loss",
     "STATUS_NEW", "STATUS_RUNNING", "STATUS_SUSPENDED", "STATUS_OK",

@@ -1,7 +1,9 @@
 """``fmin``: the serial optimization loop and the public API.
 
-Counterpart of ``hyperopt_tpu/fmin.py`` for the hosted, serial loop: one
-trial is suggested, evaluated in-process and recorded at a time.  The
+Counterpart of ``hyperopt_tpu/fmin.py`` for the hosted, serial loop: up
+to ``max_queue_len`` trials are suggested in one call of the algo (TPE
+proposes a batch by its constant-liar scan), then evaluated in-process
+and recorded.  The
 plugin boundaries are the same: ``algo`` is any
 ``suggest(new_ids, domain, trials, seed) -> docs`` callable (bind
 hyperparameters with ``functools.partial``), ``trials`` a
@@ -60,16 +62,22 @@ def generate_trials_to_calculate(points, exp_key=None):
 
 
 class FMinIter:
-    """The serial loop: suggest one trial, evaluate it, record it, until
-    ``max_evals`` trials are done or a stop condition fires."""
+    """The serial loop: suggest up to ``max_queue_len`` trials, evaluate
+    them, record them, until ``max_evals`` trials are done or a stop
+    condition fires."""
 
     catch_eval_exceptions = False
     pickle_protocol = -1
 
     def __init__(self, algo, domain, trials, rstate=None,
                  early_stop_fn=None, trials_save_file="", max_evals=None,
-                 timeout=None, loss_threshold=None, show_progressbar=True):
+                 timeout=None, loss_threshold=None, show_progressbar=True,
+                 max_queue_len=1):
+        if int(max_queue_len) < 1:
+            raise ValueError(f"max_queue_len must be >= 1, got "
+                             f"{max_queue_len!r}")
         self.algo = algo
+        self.max_queue_len = int(max_queue_len)
         self.domain = domain
         self.trials = trials
         self.rstate = np.random.default_rng() if rstate is None else rstate
@@ -122,18 +130,19 @@ class FMinIter:
         return False
 
     def run_one_batch(self):
-        """Suggest, evaluate and record one trial (or evaluate the queued
-        ones).  Returns True when the algo is exhausted or early stop
-        fired."""
+        """Enqueue up to ``max_queue_len`` new trials from one call of the
+        algo, then evaluate and record the queued ones.  Returns True when
+        the algo is exhausted or early stop fired."""
         trials = self.trials
         stopped = False
         qlen = trials.count_by_state_unsynced((JOB_STATE_NEW,
                                                JOB_STATE_RUNNING))
         remaining = (self.max_evals - self.n_enqueued()
-                     if self.max_evals is not None else 1)
-        if qlen == 0 and remaining > 0:
+                     if self.max_evals is not None else self.max_queue_len)
+        n_to_enqueue = min(self.max_queue_len - qlen, remaining)
+        if n_to_enqueue > 0:
             seed = int(self.rstate.integers(2 ** 31 - 1))
-            new_ids = trials.new_trial_ids(1)
+            new_ids = trials.new_trial_ids(n_to_enqueue)
             trials.refresh()
             new_trials = self.algo(new_ids, self.domain, trials, seed)
             if new_trials is None or len(new_trials) == 0:
@@ -195,7 +204,7 @@ def fmin(fn, space, algo=None, max_evals=None,
          verbose=True, return_argmin=True,
          points_to_evaluate=None,
          show_progressbar=True, early_stop_fn=None,
-         trials_save_file="", device=None):
+         trials_save_file="", device=None, max_queue_len=1):
     """Minimize ``fn`` over ``space`` using ``algo`` (default TPE).
 
     ``fn`` returns a float loss or a result dict with ``loss``/``status``;
@@ -205,8 +214,10 @@ def fmin(fn, space, algo=None, max_evals=None,
     list of ``{label: value}`` dicts run first; ``trials_save_file`` is a
     pickle checkpoint, resumed when it exists; ``early_stop_fn(trials,
     *args) -> (stop, args)``.  ``device`` is where the suggest algorithms
-    run (default CUDA; ``"cpu"`` runs them on the CPU).  Returns the best
-    point (``return_argmin``) or the best loss.
+    run (default CUDA; ``"cpu"`` runs them on the CPU).  ``max_queue_len``
+    is how many trials one call of the algo proposes (TPE: one batch of
+    its constant-liar scan); 1 proposes one trial at a time.  Returns the
+    best point (``return_argmin``) or the best loss.
     """
     dev = resolve_device(device)
     if algo is None:
@@ -242,7 +253,8 @@ def fmin(fn, space, algo=None, max_evals=None,
                     trials_save_file=trials_save_file,
                     max_evals=max_evals, timeout=timeout,
                     loss_threshold=loss_threshold,
-                    show_progressbar=show_progressbar and verbose)
+                    show_progressbar=show_progressbar and verbose,
+                    max_queue_len=max_queue_len)
     rval.catch_eval_exceptions = catch_eval_exceptions
     rval.exhaust()
     rval._save_trials()

@@ -1,4 +1,4 @@
-"""Fused EI scoring of TPE candidates: the CUDA kernel and its plain twin.
+"""Fused EI scoring of TPE candidates: the CUDA kernels and their plain twins.
 
 Counterpart of ``hyperopt_tpu/ops/pallas_gmm.py``.  For a group of ``C``
 continuous columns the TPE step scores ``n`` candidates per column as
@@ -9,11 +9,21 @@ with ``cb = logw - log(sg) - ½log(2π)``: the log-density ratio of the below
 and above Parzen mixtures, without the per-column truncation normalizers
 (constants along the candidate axis, so they cancel in the argmax).
 
-:func:`ei_scores` launches ``csrc/ei_scores.cu`` for CUDA tensors and uses
+Three lowerings of the same function, as in the JAX package:
+
+- ``f32`` (default): ``csrc/ei_scores.cu``, ``ei_scores_launch``;
+- ``bf16`` (``bf16=True``): the same kernel with ``t = (z - mu)/sg`` rounded
+  to bfloat16 after the subtraction and after the division, the rest in
+  float32 (``ei_scores_bf16_launch``);
+- ``mxu`` (``mxu=True``, which ignores ``bf16``): the exponent as the
+  quadratic ``a2·z² + a1·z + a0`` on the tensor cores in 3×TF32,
+  ``csrc/ei_scores_mxu.cu``.
+
+:func:`ei_scores` launches the kernel for CUDA tensors and uses
 :func:`ei_scores_reference` for CPU tensors; there is no other route.  The
-kernel is compiled with ``nvcc`` at first use into a plain-C shared library
-under ``build/hyperopt_tpu_torch/`` (named by the hash of the source) and
-bound with ``ctypes``.
+kernels are compiled with ``nvcc`` at first use, one plain-C shared library
+per source, all sources at once, under ``build/hyperopt_tpu_torch/`` (named
+by the hash of the source), and bound with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -30,15 +40,32 @@ from pathlib import Path
 import torch
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ei_scores.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = {"ei_scores": _CSRC / "ei_scores.cu",
+            "ei_scores_mxu": _CSRC / "ei_scores_mxu.cu"}
+# Lowering -> (library, C entry point).  Every entry takes the same
+# arguments.
+_ENTRIES = {"f32": ("ei_scores", "ei_scores_launch"),
+            "bf16": ("ei_scores", "ei_scores_bf16_launch"),
+            "mxu": ("ei_scores_mxu", "ei_scores_mxu_launch")}
+LOWERINGS = tuple(_ENTRIES)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hyperopt_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Largest [C, chunk, K] temporary the plain version materializes at once.
 _REF_ELEMS = 1 << 24
+# Finite floor of the quadratic's constant term (pallas_gmm.py's -1e30).
+_A0_FLOOR = -1e30
 
-_lib = None
-build_log = ""
+_libs: dict = {}
+#: Compiler report (registers, shared memory, spills) of each library
+#: built by this process.
+build_log: dict = {}
+
+
+def lowering(mxu=False, bf16=False) -> str:
+    """The lowering that ``ei_scores(..., mxu=, bf16=)`` runs."""
+    return "mxu" if mxu else ("bf16" if bf16 else "f32")
 
 
 def _nvcc() -> str:
@@ -49,36 +76,49 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def build() -> tuple[Path, float]:
-    """Compile the kernel if its library is missing; load it.
-
-    Returns ``(library path, seconds spent compiling)`` (0.0 when the
-    library for this exact source already existed).  ``build_log`` keeps
-    the compiler's report (registers, shared memory, spills)."""
-    global _lib, build_log
-    src = _SOURCE.read_bytes()
+def _lib_path(name, src: bytes) -> Path:
     digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    lib_path = _BUILD_DIR / f"ei_scores_{digest[:16]}.so"
-    seconds = 0.0
-    if not lib_path.exists():
+    return _BUILD_DIR / f"{name}_{digest[:16]}.so"
+
+
+def build() -> dict:
+    """Compile every kernel library that is missing, one ``nvcc`` per
+    source, all started together; load them all.
+
+    Returns ``{library: (path, seconds spent compiling it)}`` (0.0 for a
+    library that already existed for its exact source)."""
+    started = {}
+    for name, source in _SOURCES.items():
+        path = _lib_path(name, source.read_bytes())
+        if path.exists():
+            started[name] = (path, None, None, 0.0)
+            continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                               str(_SOURCE)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{build_log}")
-        os.replace(tmp, lib_path)
-    if _lib is None:
-        lib = ctypes.CDLL(str(lib_path))
-        fn = lib.ei_scores_launch
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started[name] = (path, tmp, proc, time.perf_counter())
+    out = {}
+    for name, (path, tmp, proc, t0) in started.items():
+        seconds = 0.0
+        if proc is not None:
+            log, _ = proc.communicate()
+            seconds = time.perf_counter() - t0
+            build_log[name] = log
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {_SOURCES[name]}:\n{log}")
+            os.replace(tmp, path)
+        out[name] = (path, seconds)
+    for name, (path, _seconds) in out.items():
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(path))
+    for lib_name, entry in _ENTRIES.values():
+        fn = getattr(_libs[lib_name], entry)
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return lib_path, seconds
+    return out
 
 
 def _check(z, mixtures):
@@ -102,17 +142,20 @@ def _check(z, mixtures):
         raise ValueError("each mixture needs at least one component")
 
 
-def ei_scores(z, logw_b, mu_b, sg_b, logw_a, mu_a, sg_a):
+def ei_scores(z, logw_b, mu_b, sg_b, logw_a, mu_a, sg_a, mxu=False,
+              bf16=False):
     """EI scores ``f32[C, n]`` of candidates ``z`` (fit space).
 
     ``logw_*/mu_*/sg_*``: ``f32[C, K*]`` below/above mixtures, ``-inf``
-    log-weights on dead components.  A CUDA ``z`` launches the kernel (and
-    adds one to ``ei_scores.launches``) or raises; a CPU ``z`` goes to
+    log-weights on dead components (any mu and sigma).  ``mxu``/``bf16``
+    pick the lowering (:func:`lowering`).  A CUDA ``z`` launches that
+    lowering's kernel (and adds one to ``ei_scores.launches`` and to
+    ``ei_scores.launches_by[lowering]``) or raises; a CPU ``z`` goes to
     :func:`ei_scores_reference`."""
     mixtures = (logw_b, mu_b, sg_b, logw_a, mu_a, sg_a)
     _check(z, mixtures)
     if z.device.type == "cpu":
-        return ei_scores_reference(z, *mixtures)
+        return ei_scores_reference(z, *mixtures, mxu=mxu, bf16=bf16)
     if z.device.type != "cuda":
         raise ValueError(f"ei_scores runs on cuda or cpu, not {z.device}")
     if not torch.cuda.is_available():
@@ -127,42 +170,112 @@ def ei_scores(z, logw_b, mu_b, sg_b, logw_a, mu_a, sg_a):
     if c > 65535:
         raise ValueError(f"ei_scores kernel takes at most 65535 columns, "
                          f"got {c}")
-    if _lib is None:
+    low = lowering(mxu, bf16)
+    lib_name, entry = _ENTRIES[low]
+    if lib_name not in _libs:
         build()
     out = torch.empty_like(z)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = _lib.ei_scores_launch(
+        err = getattr(_libs[lib_name], entry)(
             z.data_ptr(), logw_b.data_ptr(), mu_b.data_ptr(),
             sg_b.data_ptr(), logw_a.data_ptr(), mu_a.data_ptr(),
             sg_a.data_ptr(), out.data_ptr(), c, n, logw_b.shape[1],
             logw_a.shape[1], stream)
     if err != 0:
-        raise RuntimeError(f"ei_scores kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"ei_scores {low} kernel launch failed: CUDA "
+                           f"error {err}")
     ei_scores.launches += 1
+    ei_scores.launches_by[low] += 1
     return out
 
 
 ei_scores.launches = 0
+ei_scores.launches_by = dict.fromkeys(LOWERINGS, 0)
 
 
-def _mixture_lse(z, logw, mu, sg):
+def reset_launches():
+    """Set the total and per-lowering launch counts to 0."""
+    ei_scores.launches = 0
+    ei_scores.launches_by = dict.fromkeys(LOWERINGS, 0)
+
+
+def _terms_f32(logw, mu, sg):
+    live = logw > -math.inf
+    sg = torch.where(live, sg, torch.ones_like(sg))
+    mu = torch.where(live, mu, torch.zeros_like(mu))
+    cb = torch.where(live, logw - torch.log(sg) - _HALF_LOG_2PI,
+                     torch.full_like(logw, -math.inf))
+
+    def terms(z):
+        t = (z[:, :, None] - mu[:, None, :]) / sg[:, None, :]
+        return cb[:, None, :] - 0.5 * t * t
+
+    return terms
+
+
+def _terms_bf16(logw, mu, sg):
+    live = logw > -math.inf
+    cb = torch.where(live, logw - torch.log(sg) - _HALF_LOG_2PI,
+                     torch.full_like(logw, -math.inf))
+    mu_h = torch.where(live, mu, torch.zeros_like(mu)).bfloat16()
+    sg_h = torch.where(live, sg, torch.ones_like(sg)).bfloat16()
+
+    def terms(z):
+        # Two bf16 ops, each rounded to bf16; the square and the rest f32.
+        t = ((z.bfloat16()[:, :, None] - mu_h[:, None, :])
+             / sg_h[:, None, :]).float()
+        return cb[:, None, :] + (-0.5 * t * t)
+
+    return terms
+
+
+def mxu_coefficients(logw, mu, sg):
+    """``(a2, a1, a0)`` of the quadratic exponent, each ``f32[C, K]``:
+    ``a2 = -½/σ², a1 = μ/σ², a0 = max(cb - ½μ²/σ², -1e30)``; dead
+    components get ``(0, 0, -1e30)``."""
+    live = logw > -math.inf
+    sg = torch.where(live, sg, torch.ones_like(sg))
+    mu = torch.where(live, mu, torch.zeros_like(mu))
     cb = logw - torch.log(sg) - _HALF_LOG_2PI
-    t = (z[:, :, None] - mu[:, None, :]) / sg[:, None, :]
-    return torch.logsumexp(cb[:, None, :] - 0.5 * t * t, dim=-1)
+    inv2 = 1.0 / (sg * sg)
+    zero = torch.zeros_like(inv2)
+    a2 = torch.where(live, -0.5 * inv2, zero)
+    a1 = torch.where(live, mu * inv2, zero)
+    a0 = torch.where(live, torch.clamp_min(cb - 0.5 * mu * mu * inv2,
+                                           _A0_FLOOR),
+                     torch.full_like(inv2, _A0_FLOOR))
+    return a2, a1, a0
 
 
-def ei_scores_reference(z, logw_b, mu_b, sg_b, logw_a, mu_a, sg_a):
-    """Plain PyTorch version of :func:`ei_scores` (same math, any device).
+def _terms_mxu(logw, mu, sg):
+    a2, a1, a0 = (a[:, None, :] for a in mxu_coefficients(logw, mu, sg))
+
+    def terms(z):
+        zz = z[:, :, None]
+        return a2 * (zz * zz) + a1 * zz + a0
+
+    return terms
+
+
+def ei_scores_reference(z, logw_b, mu_b, sg_b, logw_a, mu_a, sg_a,
+                        mxu=False, bf16=False):
+    """Plain PyTorch version of :func:`ei_scores` for each lowering (same
+    math, any device).
 
     Materializes ``[C, chunk, K]`` broadcasts, chunked over candidates so
-    that each stays under ``2**24`` elements."""
+    that each stays under ``2**24`` elements.  Dead components add exactly
+    0 whatever their mu and sigma."""
+    terms = {"f32": _terms_f32, "bf16": _terms_bf16,
+             "mxu": _terms_mxu}[lowering(mxu, bf16)]
+    below = terms(logw_b, mu_b, sg_b)
+    above = terms(logw_a, mu_a, sg_a)
     c, n = z.shape
     k = max(logw_b.shape[1], logw_a.shape[1])
     chunk = max(1, _REF_ELEMS // max(1, c * k))
     out = []
     for i in range(0, n, chunk):
         zc = z[:, i:i + chunk]
-        out.append(_mixture_lse(zc, logw_b, mu_b, sg_b)
-                   - _mixture_lse(zc, logw_a, mu_a, sg_a))
+        out.append(torch.logsumexp(below(zc), dim=-1)
+                   - torch.logsumexp(above(zc), dim=-1))
     return torch.cat(out, dim=1) if out else z.new_empty((c, 0))

@@ -90,6 +90,26 @@ def gmm_logpdf(z, logw, mu, sigma, trunc_lo=-math.inf, trunc_hi=math.inf):
     return torch.where(in_bounds, out, torch.full_like(out, -float("inf")))
 
 
+def truncate_mixture(logw, mu, sigma, m):
+    """The top-``m``-by-weight components of a batch of mixtures:
+    ``[..., K]`` → ``[..., m]`` (unchanged when ``m >= K``).
+
+    Counterpart of the JAX helper (``lax.top_k`` + ``take_along_axis``),
+    the above-model prefilter of the EI block: a component whose weight
+    is far below the dominant one adds less than float32 epsilon near the
+    modes that decide the argmax.  A heuristic, not an identity.  Equal
+    weights keep the lower index first, as ``lax.top_k`` does (a stable
+    descending sort; ``torch.topk`` leaves the order of ties open), so
+    the dead (``-inf``) slots kept when fewer than ``m`` are live are the
+    same ones.  Component order is by weight, not by mu."""
+    if m >= logw.shape[-1]:
+        return logw, mu, sigma
+    lw, idx = torch.sort(logw, dim=-1, descending=True, stable=True)
+    idx = idx[..., :m]
+    return (lw[..., :m].contiguous(), torch.gather(mu, -1, idx),
+            torch.gather(sigma, -1, idx))
+
+
 def gmm_log_qmass(zl, zh, logw, mu, sigma, trunc_lo=-math.inf,
                   trunc_hi=math.inf):
     """Log probability mass of truncated GMMs on fit-space bins

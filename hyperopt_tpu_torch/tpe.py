@@ -14,16 +14,27 @@ linear_forgetting=25``.
    hyperparameter.
 
 The step runs on the space's device over the history padded to a
-power-of-two bucket.  Continuous columns come in up to three groups:
-density columns, scored by the CUDA kernel ``ops/ei_scores.py`` (the
-widest block of the step); quantized columns with a small bounded lattice,
-scored once per lattice point and gathered; other quantized columns,
-scored per candidate by their bin mass.  Categorical columns use a
-weighted-count posterior.
+power-of-two bucket, fed by the device-resident ring of ``history.py``
+(``resident=False``: padded on the host and uploaded whole).  Continuous
+columns come in up to three groups: density columns, scored by the CUDA
+kernels of ``ops/ei_scores.py`` (the widest block of the step), on the
+lowering the caller names (``ei_impl="vpu"`` with ``ei_precision="f32"``
+or ``"bf16"``, or ``ei_impl="mxu"``), optionally against the top
+``ei_topm`` above components only; quantized columns with a small bounded
+lattice, scored once per lattice point and gathered; other quantized
+columns, scored per candidate by their bin mass.  Categorical columns use
+a weighted-count posterior.
+
+``n > 1`` proposals past startup run the constant-liar scan
+(:meth:`_TpeKernel._liar_scan`): propose, insert the proposal into the
+history with the mean observed loss as a fantasy, refit, repeat; ``m``
+steps (``n`` rounded up to a power of two) and one device→host fetch per
+batch.
 
 Randomness: each step's uniforms come from a ``torch.Generator`` seeded
-from the suggest seed, or are handed in as ``noise`` (tests give the port
-the uniforms the JAX step draws).
+from the suggest seed (one per batch, consumed in step order), or are
+handed in as ``noise`` (tests give the port the uniforms the JAX step
+draws).
 """
 
 from __future__ import annotations
@@ -34,9 +45,11 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from . import base, rand
+from . import base, history, rand
+from .history import _padded_history
 from .ops.ei_scores import ei_scores
-from .ops.gmm import gmm_log_qmass, gmm_sample, icdf_pick, onehot_lookup
+from .ops.gmm import (gmm_log_qmass, gmm_sample, icdf_pick, onehot_lookup,
+                      truncate_mixture)
 from .ops.parzen import forgetting_weights
 from .ops.step_ei import ei_argmax_stats, fused_parzen_fit
 from .space import (
@@ -61,6 +74,8 @@ _default_n_startup_jobs = 20
 _default_n_EI_candidates = 24
 _default_gamma = 0.25
 _default_linear_forgetting = 25
+_EI_IMPLS = ("vpu", "mxu")
+_EI_PRECISIONS = ("f32", "bf16")
 
 _TINY = 1e-12
 _LOG_KINDS = (LOGUNIFORM, QLOGUNIFORM, LOGNORMAL, QLOGNORMAL)
@@ -157,12 +172,45 @@ class _ContGroup:
         return SimpleNamespace(**out)
 
 
+def _check_ei_args(ei_impl, ei_precision, ei_topm):
+    if ei_impl not in _EI_IMPLS:
+        raise ValueError(f"ei_impl must be one of {_EI_IMPLS}, got "
+                         f"{ei_impl!r}")
+    if ei_precision not in _EI_PRECISIONS:
+        raise ValueError(f"ei_precision must be one of {_EI_PRECISIONS}, "
+                         f"got {ei_precision!r}")
+    if isinstance(ei_topm, bool) or not isinstance(ei_topm, (int, np.integer)) \
+            or ei_topm < 0:
+        raise ValueError(f"ei_topm must be an int >= 0, got {ei_topm!r}")
+
+
+def _insert_row(hv, ha, hl, hok, idx, row, act, loss):
+    """Write one trial into row ``idx`` of the padded history tensors, in
+    place (the liar scan's fantasy rows)."""
+    hv[idx] = row
+    ha[idx] = act
+    hl[idx] = loss
+    hok[idx] = True
+    return hv, ha, hl, hok
+
+
 class _TpeKernel:
     """The TPE suggest step for a fixed (space, history bucket, n_cand, LF,
-    split, categorical prior, device)."""
+    split, categorical prior, device, EI lowering).
+
+    ``ei_impl``/``ei_precision`` pick the EI kernel (``ops/ei_scores.py``:
+    ``"vpu"``/``"f32"`` K1, ``"vpu"``/``"bf16"`` K2, ``"mxu"`` K3, which
+    ignores the precision); ``ei_topm > 0`` scores against the top
+    ``ei_topm`` above components by weight only."""
 
     def __init__(self, cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
-                 split: str = "sqrt", cat_prior: str = "sqrt", device="cuda"):
+                 split: str = "sqrt", cat_prior: str = "sqrt", device="cuda",
+                 ei_impl: str = "vpu", ei_precision: str = "f32",
+                 ei_topm: int = 0):
+        _check_ei_args(ei_impl, ei_precision, ei_topm)
+        self.ei_impl = ei_impl
+        self.ei_precision = ei_precision
+        self.ei_topm = int(ei_topm)
         self.cs = cs
         self.n_cap = n_cap
         self.n_cand = n_cand
@@ -298,7 +346,13 @@ class _TpeKernel:
         x_nat = torch.where(gt.is_log[:, None], torch.exp(zc), zc)
         if not g.is_q:
             # Density columns: the CUDA kernel (plain twin on the CPU).
-            return x_nat, ei_scores(zc, lwb, mub, sgb, lwa, mua, sga)
+            # Only the above mixture is truncated: the below one also
+            # feeds the draws.
+            if 0 < self.ei_topm < lwa.shape[-1]:
+                lwa, mua, sga = truncate_mixture(lwa, mua, sga, self.ei_topm)
+            return x_nat, ei_scores(zc, lwb, mub, sgb, lwa, mua, sga,
+                                    mxu=self.ei_impl == "mxu",
+                                    bf16=self.ei_precision == "bf16")
         q = gt.q[:, None]
         v = torch.round(x_nat / q) * q
         v = torch.minimum(torch.maximum(v, gt.clip_lo[:, None]),
@@ -422,6 +476,42 @@ class _TpeKernel:
             vals, active, loss, ok, gamma, prior_weight, generator, noise)
         return row, act_row
 
+    def _liar_scan(self, m, n_rows, vals, active, loss, ok, gamma,
+                   prior_weight, generator=None, noises=None):
+        """``m`` proposals with constant-liar fantasy refits:
+        ``(rows[m, P], acts[m, P])`` on the device.
+
+        Independent EI-argmax draws from one posterior collapse onto the
+        same peak.  Constant liar (Ginsbourger): after each proposal,
+        insert it at row ``n_rows + i`` of a copy of the history with a
+        fantasy loss, the mean of the observed ``ok`` losses, which ranks
+        it into the above set and repels the next proposal; refit and
+        propose again.  Step ``i`` draws its uniforms from ``generator``
+        (in step order) or takes ``noises[i]``."""
+        if noises is not None and len(noises) != m:
+            raise ValueError(f"{len(noises)} noise dicts for {m} steps")
+        n_ok = torch.clamp_min(torch.sum(ok), 1).to(torch.float32)
+        lie = torch.sum(torch.where(ok, loss, torch.zeros_like(loss))) / n_ok
+        hist = [t.clone() for t in (vals, active, loss, ok)]
+        rows, acts = [], []
+        for i in range(m):
+            row, act = self(*hist, gamma, prior_weight, generator=generator,
+                            noise=None if noises is None else noises[i])
+            _insert_row(*hist, n_rows + i, row, act, lie)
+            rows.append(row)
+            acts.append(act)
+        return torch.stack(rows), torch.stack(acts)
+
+    def suggest_many(self, m, n_rows, vals, active, loss, ok, gamma,
+                     prior_weight, generator=None, noises=None):
+        """``m`` constant-liar proposals (see :meth:`_liar_scan`); the
+        bucket must hold the ``n_rows`` history rows and ``m`` more."""
+        if n_rows + m > self.n_cap:
+            raise ValueError(f"{n_rows} rows + {m} fantasies do not fit the "
+                             f"bucket of {self.n_cap}")
+        return self._liar_scan(m, n_rows, vals, active, loss, ok, gamma,
+                               prior_weight, generator, noises)
+
 
 def _bucket(n: int) -> int:
     """Power-of-two history capacity (min 32)."""
@@ -430,41 +520,53 @@ def _bucket(n: int) -> int:
 
 def get_kernel(cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
                split: str = "sqrt", cat_prior: str = "sqrt",
-               device="cuda") -> _TpeKernel:
+               device="cuda", ei_impl: str = "vpu", ei_precision: str = "f32",
+               ei_topm: int = 0) -> _TpeKernel:
     """The cached :class:`_TpeKernel` for these shapes and arguments."""
     cache = cs.__dict__.setdefault("_tpe_kernels", {})
     dev = torch.device(device)
-    k = (n_cap, n_cand, lf, split, cat_prior, str(dev))
+    k = (n_cap, n_cand, lf, split, cat_prior, str(dev), ei_impl,
+         ei_precision, int(ei_topm))
     if k not in cache:
-        cache[k] = _TpeKernel(cs, n_cap, n_cand, lf, split, cat_prior, dev)
+        cache[k] = _TpeKernel(cs, n_cap, n_cand, lf, split, cat_prior, dev,
+                              ei_impl, ei_precision, ei_topm)
     return cache[k]
 
 
-def _padded_history(h, n_cap):
-    n, p = h["vals"].shape
-    vals = np.zeros((n_cap, p), np.float32)
-    active = np.zeros((n_cap, p), bool)
-    loss = np.full((n_cap,), np.inf, np.float32)
-    ok = np.zeros((n_cap,), bool)
-    vals[:n] = h["vals"]
-    active[:n] = h["active"]
-    loss[:n] = h["loss"]
-    ok[:n] = h["ok"]
-    return vals, active, loss, ok
+def _batch_size_for(n):
+    """Liar-scan steps for ``n`` proposals: ``n`` rounded up to a power of
+    two, so that every batch size in ``(m/2, m]`` runs the same number of
+    steps and lands in the same bucket; the surplus proposals are sliced
+    off in :func:`_force_rows` (the scan is sequential, so the first ``n``
+    rows do not depend on them)."""
+    if n <= 1:
+        return n
+    return 1 << (n - 1).bit_length()
+
+
+def _inflight_fantasy_rows(h, trials, cs):
+    """Constant-liar rows of NEW/RUNNING trials: ``(pv[M, P], pa[M, P],
+    lie)`` with ``lie`` the mean observed loss, or None when nothing is in
+    flight."""
+    infl = getattr(trials, "inflight", None)
+    if infl is None:
+        return None
+    pv, pa = infl(cs)
+    if not len(pv):
+        return None
+    okl = h["loss"][h["ok"]]
+    lie = np.float32(okl.mean()) if okl.size else np.float32(0.0)
+    return pv, pa, lie
 
 
 def _with_inflight_fantasies(h, trials, cs):
     """NEW/RUNNING trials enter the history as constant-liar rows at the
     mean observed loss, so a proposal is repelled from points already in
     flight.  No-op when nothing is in flight."""
-    infl = getattr(trials, "inflight", None)
-    if infl is None:
+    fant = _inflight_fantasy_rows(h, trials, cs)
+    if fant is None:
         return h
-    pv, pa = infl(cs)
-    if not len(pv):
-        return h
-    okl = h["loss"][h["ok"]]
-    lie = np.float32(okl.mean()) if okl.size else np.float32(0.0)
+    pv, pa, lie = fant
     return dict(
         vals=np.concatenate([h["vals"], pv]),
         active=np.concatenate([h["active"], pa]),
@@ -478,14 +580,17 @@ def suggest(new_ids, domain, trials, seed,
             n_EI_candidates=_default_n_EI_candidates,
             gamma=_default_gamma,
             linear_forgetting=_default_linear_forgetting,
-            split="sqrt", cat_prior="sqrt"):
+            split="sqrt", cat_prior="sqrt", ei_impl="vpu",
+            ei_precision="f32", ei_topm=0, resident=True):
     """TPE suggest: trial docs for ``new_ids``.  Bind hyperparameters with
-    ``functools.partial(tpe.suggest, n_EI_candidates=...)``."""
+    ``functools.partial(tpe.suggest, n_EI_candidates=...)``; the keywords
+    are those of :func:`suggest_dispatch`."""
     handle = suggest_dispatch(
         new_ids, domain, trials, seed, prior_weight=prior_weight,
         n_startup_jobs=n_startup_jobs, n_EI_candidates=n_EI_candidates,
         gamma=gamma, linear_forgetting=linear_forgetting, split=split,
-        cat_prior=cat_prior)
+        cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
+        ei_topm=ei_topm, resident=resident)
     return suggest_materialize(handle)
 
 
@@ -495,13 +600,15 @@ def suggest_batch(new_ids, domain, trials, seed,
                   n_EI_candidates=_default_n_EI_candidates,
                   gamma=_default_gamma,
                   linear_forgetting=_default_linear_forgetting,
-                  split="sqrt", cat_prior="sqrt"):
+                  split="sqrt", cat_prior="sqrt", ei_impl="vpu",
+                  ei_precision="f32", ei_topm=0, resident=True):
     """Raw ``(vals[n, P], active[n, P])`` host arrays, without docs."""
     return _force_rows(suggest_dispatch(
         new_ids, domain, trials, seed, prior_weight=prior_weight,
         n_startup_jobs=n_startup_jobs, n_EI_candidates=n_EI_candidates,
         gamma=gamma, linear_forgetting=linear_forgetting, split=split,
-        cat_prior=cat_prior))
+        cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
+        ei_topm=ei_topm, resident=resident))
 
 
 def suggest_dispatch(new_ids, domain, trials, seed,
@@ -510,13 +617,23 @@ def suggest_dispatch(new_ids, domain, trials, seed,
                      n_EI_candidates=_default_n_EI_candidates,
                      gamma=_default_gamma,
                      linear_forgetting=_default_linear_forgetting,
-                     split="sqrt", cat_prior="sqrt"):
+                     split="sqrt", cat_prior="sqrt", ei_impl="vpu",
+                     ei_precision="f32", ei_topm=0, resident=True):
     """Start the suggest computation on the space's device; returns a
     handle for :func:`suggest_materialize`.  The history is read now.
 
+    ``ei_impl`` (``"vpu"``/``"mxu"``), ``ei_precision`` (``"f32"``/
+    ``"bf16"``) and ``ei_topm`` pick the EI lowering (:class:`_TpeKernel`);
+    ``resident=False`` pads the history on the host and uploads it whole
+    instead of feeding from the resident ring (the same tensors either
+    way).  ``n > 1`` new ids past startup run ``m = _batch_size_for(n)``
+    constant-liar steps in a bucket with ``m`` rows of slack.
+
     Handle: ``(tag, cs, new_ids, rows, exp_key)`` with ``rows`` a host
-    ``(vals, active)`` pair ("ready": empty space or random startup) or a
-    device row not yet fetched ("pending")."""
+    ``(vals, active)`` pair ("ready": empty space or random startup) or
+    device rows not yet fetched ("pending": ``[P]`` for one proposal,
+    ``[m, P]`` for a batch)."""
+    _check_ei_args(ei_impl, ei_precision, ei_topm)
     cs = domain.cs
     dev = resolve_device(cs.device)
     n = len(new_ids)
@@ -531,27 +648,49 @@ def suggest_dispatch(new_ids, domain, trials, seed,
         v = v.cpu().numpy()
         return ("ready", cs, list(new_ids), (v, cs.active_mask_host(v)),
                 exp_key)
-    if n != 1:
-        raise NotImplementedError(
-            "hyperopt_tpu_torch proposes one trial per TPE step; batched "
-            "proposals (the constant-liar scan) are not ported yet")
-    h = _with_inflight_fantasies(h, trials, cs)
-    kern = get_kernel(cs, _bucket(h["vals"].shape[0]), int(n_EI_candidates),
-                      int(linear_forgetting), split, cat_prior, dev)
-    hist = [torch.as_tensor(a, device=dev)
-            for a in _padded_history(h, kern.n_cap)]
+    if resident:
+        # In-flight rows become a copy's slack rows on the device: a host
+        # concat would make the ring re-upload every overlapped step.
+        fant = _inflight_fantasy_rows(h, trials, cs)
+        n_rows = h["vals"].shape[0] + (len(fant[0]) if fant else 0)
+    else:
+        h = _with_inflight_fantasies(h, trials, cs)
+        n_rows = h["vals"].shape[0]
+    m = _batch_size_for(n)
+    kern = get_kernel(cs, _bucket(n_rows + (m if n > 1 else 0)),
+                      int(n_EI_candidates), int(linear_forgetting), split,
+                      cat_prior, dev, ei_impl, ei_precision, ei_topm)
+    if resident:
+        if n_rows >= 0.75 * kern.n_cap:
+            # Near the bucket boundary: pad-copy to the next bucket now,
+            # so that the call that crosses it pays no copy.
+            history.pregrow(trials, cs, kern.n_cap * 2, dev)
+        hist = history.device_history(trials, cs, h, kern.n_cap,
+                                      fantasies=fant, device=dev)
+    else:
+        hist = [torch.as_tensor(a, device=dev)
+                for a in _padded_history(h, kern.n_cap)]
     gen = make_generator(dev, int(seed) % (2 ** 32))
-    row, _ = kern(*hist, gamma, prior_weight, generator=gen)
-    return ("pending", cs, list(new_ids), row, exp_key)
+    if n == 1:
+        rows, _ = kern(*hist, gamma, prior_weight, generator=gen)
+    else:
+        rows, _ = kern.suggest_many(m, n_rows, *hist, gamma, prior_weight,
+                                    generator=gen)
+    return ("pending", cs, list(new_ids), rows, exp_key)
 
 
 def _force_rows(handle):
     """A dispatch handle's proposals as host ``(vals[n, P], active[n, P])``;
-    a pending handle fetches only the values row (one device sync) and
-    rebuilds the mask on the host."""
-    tag, cs, _new_ids, rows = handle[:4]
+    a pending handle fetches only the values (one device sync for the
+    whole batch), keeps the first ``n`` rows (a batch rounded up to a
+    power of two carries surplus ones) and rebuilds the mask on the
+    host."""
+    tag, cs, new_ids, rows = handle[:4]
     if tag == "pending":
-        vals = rows.cpu().numpy()[None, :]
+        vals = rows.cpu().numpy()
+        if vals.ndim == 1:
+            vals = vals[None, :]
+        vals = vals[:len(new_ids)]
         return vals, cs.active_mask_host(vals)
     return rows
 

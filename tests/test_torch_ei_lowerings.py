@@ -1,0 +1,137 @@
+"""The bf16 and tensor-core lowerings of the port's EI scorer, and the
+above-model truncation, against hyperopt_tpu.
+
+On the CPU ``ei_scores(..., bf16=True)`` and ``ei_scores(..., mxu=True)``
+are their plain twins.  They are held against the JAX package's Pallas
+kernel run in interpret mode with the same flags, at the tolerance of
+``tests/test_pallas.py`` (rtol/atol 2e-4), and the mxu twin against the
+f32 twin at that file's mxu tolerance (2e-3, argmax equal).  The JAX bf16
+kernel on the CPU rounds ``t = (z - mu)/sg`` to bf16 after the subtraction
+and the division and computes the square in f32; the twin does the same.
+The CUDA kernels run only on the card (``tests/test_torch_ei_scores.py``
+has the ``cuda``-marked check; ``chip_smoke.py`` the full shapes)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hyperopt_tpu.ops.gmm import truncate_mixture as truncate_jax
+from hyperopt_tpu.ops.pallas_gmm import ei_scores as ei_jax
+from hyperopt_tpu_torch.ops import ei_scores as ei_mod
+from hyperopt_tpu_torch.ops.gmm import truncate_mixture
+
+SHAPES = [(3, 300, 8, 40), (2, 500, 26, 130), (31, 2000, 26, 1025)]
+LOWERINGS = {"bf16": {"bf16": True}, "mxu": {"mxu": True}}
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _random_mixture(rng, c, k, k_live):
+    logw = np.full((c, k), -np.inf, np.float32)
+    for i in range(c):
+        w = rng.random(k_live) + 0.1
+        logw[i, :k_live] = np.log(w / w.sum())
+    mu = np.where(np.isfinite(logw), rng.normal(0, 3, (c, k)), 0.0)
+    sg = np.where(np.isfinite(logw), rng.uniform(0.3, 3, (c, k)), 1.0)
+    return logw, mu.astype(np.float32), sg.astype(np.float32)
+
+
+def _case(c, n, kb, ka, seed=0):
+    rng = np.random.default_rng(seed)
+    below = _random_mixture(rng, c, kb, kb - 1)
+    above = _random_mixture(rng, c, ka, ka - 3)
+    z = rng.normal(0, 3, (c, n)).astype(np.float32)
+    return z, below, above
+
+
+def _port(z, below, above, **kw):
+    return ei_mod.ei_scores(*(torch.as_tensor(a) for a in
+                              (z, *below, *above)), **kw).numpy()
+
+
+@pytest.mark.parametrize("low", sorted(LOWERINGS))
+@pytest.mark.parametrize("c,n,kb,ka", SHAPES)
+def test_twin_matches_pallas_interpret(low, c, n, kb, ka):
+    z, below, above = _case(c, n, kb, ka)
+    kw = LOWERINGS[low]
+    got = _port(z, below, above, **kw)
+    want = np.asarray(ei_jax(*(jnp.asarray(a) for a in (z, *below, *above)),
+                             tile=128, interpret=True, **kw))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("c,n,kb,ka", SHAPES)
+def test_mxu_twin_matches_f32_twin(c, n, kb, ka):
+    z, below, above = _case(c, n, kb, ka, seed=1)
+    f32 = _port(z, below, above)
+    mxu = _port(z, below, above, mxu=True)
+    np.testing.assert_allclose(mxu, f32, rtol=2e-3, atol=2e-3)
+    np.testing.assert_array_equal(np.argmax(mxu, 1), np.argmax(f32, 1))
+
+
+def test_mxu_ignores_bf16():
+    z, below, above = _case(2, 100, 5, 9)
+    np.testing.assert_array_equal(_port(z, below, above, mxu=True, bf16=True),
+                                  _port(z, below, above, mxu=True))
+
+
+@pytest.mark.parametrize("low", sorted(LOWERINGS))
+def test_extreme_values_stay_finite(rng, low):
+    logw = np.log(np.asarray([[0.5, 0.5], [0.9, 0.1]], np.float32))
+    mu = np.asarray([[-50.0, 50.0], [0.0, 1e4]], np.float32)
+    sg = np.asarray([[1e-3, 1e3], [0.5, 10.0]], np.float32)
+    z = rng.uniform(-1e4, 1e4, (2, 256)).astype(np.float32)
+    out = _port(z, (logw, mu, sg), (logw, mu, sg), **LOWERINGS[low])
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, 0.0, atol=1e-3)
+
+
+@pytest.mark.parametrize("low", ["f32", "bf16", "mxu"])
+def test_dead_components_with_any_mu_sigma_add_nothing(low):
+    """A -inf log-weight hides its component whatever its mu and sigma:
+    sigma 0 and NaN mu give the scores of the mixture without it."""
+    kw = LOWERINGS.get(low, {})
+    z, below, above = _case(2, 100, 5, 9)
+    lw, mu, sg = (np.concatenate([a, np.full((2, 3), f, np.float32)], 1)
+                  for a, f in zip(above, (-np.inf, np.nan, 0.0)))
+    got = _port(z, below, (lw, mu, sg), **kw)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _port(z, below, above, **kw), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_mxu_coefficients_floor_and_dead():
+    logw = torch.tensor([[0.0, float("-inf"), 0.0]])
+    mu = torch.tensor([[1.0, float("nan"), 1e16]])
+    sg = torch.tensor([[2.0, 0.0, 1e-3]])
+    a2, a1, a0 = ei_mod.mxu_coefficients(logw, mu, sg)
+    np.testing.assert_allclose(a2[0, 0].item(), -0.125)
+    np.testing.assert_allclose(a1[0, 0].item(), 0.25)
+    assert (a2[0, 1].item(), a1[0, 1].item(), a0[0, 1].item()) == \
+        (0.0, 0.0, np.float32(-1e30))
+    assert a0[0, 2].item() == np.float32(-1e30)      # floored live component
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 40])
+def test_truncate_mixture_matches_jax(m):
+    rng = np.random.default_rng(m)
+    logw, mu, sg = _random_mixture(rng, 4, 24, 10)
+    logw[1, 3] = logw[1, 5]                           # a tie among live ones
+    got = truncate_mixture(*(torch.as_tensor(a) for a in (logw, mu, sg)), m)
+    want = truncate_jax(*(jnp.asarray(a) for a in (logw, mu, sg)), m)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_lowering_names():
+    assert ei_mod.lowering() == "f32"
+    assert ei_mod.lowering(bf16=True) == "bf16"
+    assert ei_mod.lowering(mxu=True, bf16=True) == "mxu"
+    assert set(ei_mod.ei_scores.launches_by) == set(ei_mod.LOWERINGS)

@@ -4,9 +4,10 @@ On the CPU ``ei_scores`` is its plain version, held here against the JAX
 package's Pallas kernel run in interpret mode and against the XLA
 ``gmm_logpdf`` difference (plus the truncation normalizers the kernel
 leaves out), at the tolerance of ``tests/test_pallas.py`` (rtol/atol
-2e-4), with identical argmax.  The CUDA kernel itself runs only on the
-card: its test is marked ``cuda`` and skips elsewhere; ``chip_smoke.py``
-holds it against the plain version at the TPE step's full shape."""
+2e-4), with identical argmax.  The CUDA kernels themselves (f32, bf16 and
+tensor-core lowerings) run only on the card: their test is marked ``cuda``
+and skips elsewhere; ``chip_smoke.py`` holds them against their plain
+versions at the TPE step's full shape."""
 
 import jax
 import jax.numpy as jnp
@@ -118,14 +119,16 @@ class _ClaimsCuda(torch.Tensor):
 
 
 @pytest.mark.parametrize("available", [False, True])
-def test_cuda_tensor_never_falls_back(monkeypatch, available):
-    """A tensor on a CUDA device launches the kernel or raises: it must not
-    reach the plain version, with or without a usable card."""
+def test_cuda_tensor_never_falls_back(monkeypatch, available, tmp_path):
+    """A tensor on a CUDA device launches the kernel or raises, on every
+    lowering: it must not reach the plain version, with or without a
+    usable card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: available)
-    monkeypatch.setattr(ei_mod, "_lib", None)
+    monkeypatch.setattr(ei_mod, "_libs", {})
+    monkeypatch.setattr(ei_mod, "_BUILD_DIR", tmp_path)
     monkeypatch.setattr(ei_mod, "_nvcc", lambda: "/nonexistent/nvcc")
 
-    def _fallback(*a):
+    def _fallback(*a, **kw):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(ei_mod, "ei_scores_reference", _fallback)
@@ -133,20 +136,30 @@ def test_cuda_tensor_never_falls_back(monkeypatch, available):
     t = [torch.Tensor._make_subclass(_ClaimsCuda, torch.as_tensor(a))
          for a in (z, *below, *above)]
     launches = ei_mod.ei_scores.launches
-    with pytest.raises((RuntimeError, OSError)):
-        ei_mod.ei_scores(*t)
+    by = dict(ei_mod.ei_scores.launches_by)
+    for kw in ({}, {"bf16": True}, {"mxu": True}):
+        with pytest.raises((RuntimeError, OSError)):
+            ei_mod.ei_scores(*t, **kw)
     assert ei_mod.ei_scores.launches == launches
+    assert ei_mod.ei_scores.launches_by == by
 
 
 @pytest.mark.cuda
 def test_kernel_matches_reference_on_card():
+    """Each lowering's kernel against its plain version on the card: 2e-4
+    for f32 and bf16, and for the tensor-core form the JAX package's
+    tolerance of mxu against vpu, 2e-3."""
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     z, below, above = _case(31, 3000, 26, 1025)
     t = [torch.as_tensor(a, device="cuda") for a in (z, *below, *above)]
-    launches = ei_mod.ei_scores.launches
-    got = ei_mod.ei_scores(*t)
-    torch.cuda.synchronize()
-    assert ei_mod.ei_scores.launches == launches + 1
-    want = ei_mod.ei_scores_reference(*t)
-    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    for low, kw, tol in (("f32", {}, 2e-4), ("bf16", {"bf16": True}, 2e-4),
+                         ("mxu", {"mxu": True}, 2e-3)):
+        launches = ei_mod.ei_scores.launches
+        by = ei_mod.ei_scores.launches_by[low]
+        got = ei_mod.ei_scores(*t, **kw)
+        torch.cuda.synchronize()
+        assert ei_mod.ei_scores.launches == launches + 1
+        assert ei_mod.ei_scores.launches_by[low] == by + 1
+        want = ei_mod.ei_scores_reference(*t, **kw)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)

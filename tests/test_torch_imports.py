@@ -38,7 +38,7 @@ def test_imports_with_jax_blocked():
         "for name in ('jax', 'jaxlib', 'hyperopt_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import hyperopt_tpu_torch, hyperopt_tpu_torch.convert, chip_smoke\n"
-        "import hyperopt_tpu_torch.ops.ei_scores\n"
+        "import hyperopt_tpu_torch.ops.ei_scores, hyperopt_tpu_torch.history\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hyperopt_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -182,6 +182,9 @@ def test_per_candidate_q_scores_match_jax(monkeypatch):
 
 
 def test_batched_proposals_past_startup_are_refused():
+    """No longer refused: ``n > 1`` past startup runs the constant-liar
+    scan (``tests/test_torch_liar.py``) and returns one doc per id, as a
+    single proposal does."""
     cst = compile_t(flagship(ht))
     cst.device = "cpu"
     h = _history(compile_j(flagship(hj)), 30, 0)
@@ -194,8 +197,9 @@ def test_batched_proposals_past_startup_are_refused():
     trials.insert_trial_docs(docs)
     trials.refresh()
     domain = ht.Domain(lambda d: 0.0, cst)
-    with pytest.raises(NotImplementedError):
-        tpe_t.suggest([30, 31], domain, trials, 0)
+    docs = tpe_t.suggest([30, 31], domain, trials, 0)
+    assert [d["tid"] for d in docs] == [30, 31]
+    assert docs[0]["misc"]["vals"] != docs[1]["misc"]["vals"]
     assert len(tpe_t.suggest([30], domain, trials, 0)) == 1
 
 
