@@ -13,8 +13,12 @@ Phases, each fatal on failure:
                ``ei_scores_mxu.cu``.
 2. ei_kernel   hold each kernel against its plain PyTorch version on the
                card at the TPE step's shape (31 columns x 10,000 candidates
-               x (26 + 1025) components) and at edge shapes, with extreme
-               values and dead components; time both.
+               x (26 + 1025) components), at the 2,048 bucket's shape
+               (26 + 2049, a live prefix of 1,030 above) and at edge
+               shapes, with extreme values, a dead tail and dead
+               components scattered through the staged chunks; time the
+               kernels at both step shapes and the plain version at the
+               first.
 3. suggest_step  one TPE step at full width (50-dim space, 1,000-trial
                history, 10,000 candidates), a few times, then three more
                under ``torch.profiler`` (device-busy share, launches and
@@ -94,9 +98,12 @@ TF32_FLOP_PER_S = 495e12
 HBM_BYTES_PER_S = 3.35e12
 # Float32 operations per (candidate, component) term besides its exp.
 # f32: z - mu, * 1/sigma, fma for cb - t*t (2), - max, + sum.  bf16: the
-# same plus two roundings to bf16 (2 each) and a true division (~6).
+# same plus two roundings to bf16 (2 each); its division is a multiply by
+# a reciprocal folded once per component, so it adds nothing per term.
 # mxu: the online update (- max, |.|, compare, fma or add).
-FLOP_PER_TERM = {"f32": 6, "bf16": 16, "mxu": 4}
+FLOP_PER_TERM = {"f32": 6, "bf16": 10, "mxu": 4}
+# Back-to-back calls inside one pair of CUDA events when a kernel is timed.
+LAUNCHES_PER_WINDOW = 10
 
 
 def fail(msg):
@@ -175,8 +182,12 @@ def in_bounds(cs, row):
     return bad
 
 
-def cuda_ms(fn, reps=25, warmup=3):
-    """Median milliseconds of ``fn`` on the card (CUDA events)."""
+def cuda_ms(fn, reps=25, warmup=3, inner=LAUNCHES_PER_WINDOW):
+    """Median milliseconds per call of ``fn`` on the card: CUDA events
+    around ``inner`` back-to-back calls, ``reps`` times, after warm-up.
+    Back to back, the card runs one launch while the host prepares the
+    next, so the host's time per call stays out of the number unless it
+    is longer than the kernel's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -185,10 +196,11 @@ def cuda_ms(fn, reps=25, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -268,17 +280,53 @@ def with_dead(mixture, n_dead, dev):
             for a, b in zip((logw, mu, sg), pad)]
 
 
+def scattered_dead(rng, c, k, dev, dead):
+    """A mixture of ``k`` components whose dead ones (weight 0, sigma 0, NaN
+    mu) are where the bool mask ``dead[k]`` says, the same in every
+    column."""
+    live = ~dead
+    logw = np.full((c, k), -np.inf, np.float32)
+    w = rng.random((c, int(live.sum()))) + 0.1
+    logw[:, live] = np.log(w / w.sum(axis=1, keepdims=True))
+    mu = np.where(live, rng.normal(0, 3, (c, k)), np.nan)
+    sg = np.where(live, rng.uniform(0.3, 3, (c, k)), 0.0)
+    return [torch.as_tensor(a.astype(np.float32), device=dev)
+            for a in (logw, mu, sg)]
+
+
+def scattered_masks():
+    """Dead masks of the scattered-dead case, laid over chunks of 512
+    staged components (the chunk of every kernel): below, 40 components,
+    every sixth dead from the second, the last live; above, 2,600
+    components: in chunk 0 every fifth dead from the third; chunk 1 all
+    dead; chunk 2 dead but for its last component; chunk 3 dead in its
+    first half and every seventh of its second; past 2,048 every other
+    one dead, the last one too."""
+    jb = np.arange(40)
+    ja = np.arange(2600)
+    dead_b = jb % 6 == 1
+    dead_a = np.select(
+        [ja < 512, ja < 1024, ja < 1536, ja < 2048],
+        [ja % 5 == 2, True, ja != 1535, (ja < 1792) | (ja % 7 == 0)],
+        ja % 2 == 1)
+    return dead_b, dead_a
+
+
 def phase_ei_kernel(dev):
     """Each lowering's kernel against its plain version.  Returns
-    ``{lowering: {max_abs_err, ms, plain_ms, bound_ms, bound_by}}``."""
+    ``{lowering: {max_abs_err, ms, plain_ms, bound_ms, bound_by, ms_2048,
+    bound_ms_2048}}``."""
     rng = np.random.default_rng(0)
     out = {low: {"max_abs_err": 0.0} for low in KERNELS}
     launches0 = ei_mod.ei_scores.launches
-    shapes = [("slice", 31, N_CAND, 26, 1025), ("edge", 3, 1000, 26, 1500),
-              ("tiny", 1, 64, 2, 130)]
-    for name, c, n, kb, ka in shapes:
+    # (name, C, n, K_b, K_a, live above); the live components lead.
+    shapes = [("slice", 31, N_CAND, 26, 1025, 1022),
+              ("b2048", 31, N_CAND, 26, 2049, 1030),
+              ("edge", 3, 1000, 26, 1500, 1497),
+              ("tiny", 1, 64, 2, 130, 127)]
+    for name, c, n, kb, ka, live_a in shapes:
         below = random_mixture(rng, c, kb, kb - 1, dev)
-        above = random_mixture(rng, c, ka, ka - 3, dev)
+        above = random_mixture(rng, c, ka, live_a, dev)
         z = torch.as_tensor(rng.normal(0, 3, (c, n)).astype(np.float32),
                             device=dev)
         for low, (_, _, _, kw, _) in KERNELS.items():
@@ -289,15 +337,20 @@ def phase_ei_kernel(dev):
                                       TOL[low])
             out[low]["max_abs_err"] = max(out[low]["max_abs_err"], err)
             print(f"ei_kernel {low} {name}: C={c} n={n} K_b={kb} K_a={ka} "
-                  f"max_abs_err={err:.3g} tol={TOL[low]:g} "
+                  f"live_a={live_a} max_abs_err={err:.3g} tol={TOL[low]:g} "
                   f"tol_used={used:.3g} near_tie_columns={near}")
-            if name != "slice":
+            if name not in ("slice", "b2048"):
                 continue
             kernel_ms = cuda_ms(lambda: ei_mod.ei_scores(z, *below, *above,
                                                          **kw))
+            bound_ms, bound_by = ei_bound_ms(z, below[0], above[0], low)
+            if name == "b2048":
+                print(f"ei_kernel {low} b2048: kernel_ms={kernel_ms:.4f} "
+                      f"bound_ms={bound_ms:.4f} ({bound_by})")
+                out[low].update(ms_2048=kernel_ms, bound_ms_2048=bound_ms)
+                continue
             reference_ms = cuda_ms(
                 lambda: ei_mod.ei_scores_reference(z, *below, *above, **kw))
-            bound_ms, bound_by = ei_bound_ms(z, below[0], above[0], low)
             print(f"ei_kernel {low} slice: kernel_ms={kernel_ms:.4f} "
                   f"reference_ms={reference_ms:.4f} bound_ms={bound_ms:.4f} "
                   f"({bound_by})")
@@ -321,8 +374,26 @@ def phase_ei_kernel(dev):
                 print(f"ei_kernel {low} dead: K_b={kb}+4 K_a={ka}+7 "
                       f"(sigma 0, mu NaN) max_abs_err={err:.3g}, plain "
                       f"version vs without them {err2:.3g}")
+    # Dead components inside chunks, whole dead chunks between live ones
+    # and a chunk whose only live component is its last: a kernel that
+    # stops at a chunk's last live component must still add every one.
+    dead_b, dead_a = scattered_masks()
+    below = scattered_dead(rng, 3, dead_b.size, dev, dead_b)
+    above = scattered_dead(rng, 3, dead_a.size, dev, dead_a)
+    z = torch.as_tensor(rng.normal(0, 3, (3, 1000)).astype(np.float32),
+                        device=dev)
+    for low, (_, _, _, kw, _) in KERNELS.items():
+        got = ei_mod.ei_scores(z, *below, *above, **kw)
+        torch.cuda.synchronize()
+        ref = ei_mod.ei_scores_reference(z, *below, *above, **kw)
+        err, _, _ = compare(got, ref, f"ei_kernel {low} scattered_dead",
+                            TOL[low])
+        out[low]["max_abs_err"] = max(out[low]["max_abs_err"], err)
+        print(f"ei_kernel {low} scattered_dead: K_b={dead_b.size} "
+              f"({int((~dead_b).sum())} live) K_a={dead_a.size} "
+              f"({int((~dead_a).sum())} live) max_abs_err={err:.3g}")
     # Far-tail candidates against narrow and wide components: finite, and
-    # identical below/above mixtures score 0.
+    # identical below/above mixtures score 0 (exactly, for f32 and bf16).
     logw = torch.log(torch.tensor([[0.5, 0.5], [0.9, 0.1]], device=dev))
     mu = torch.tensor([[-50.0, 50.0], [0.0, 1e4]], device=dev)
     sg = torch.tensor([[1e-3, 1e3], [0.5, 10.0]], device=dev)
@@ -330,12 +401,12 @@ def phase_ei_kernel(dev):
                         device=dev)
     for low, (_, _, _, kw, _) in KERNELS.items():
         got = ei_mod.ei_scores(z, logw, mu, sg, logw, mu, sg, **kw)
-        if not bool(torch.isfinite(got).all()) or \
-                got.abs().max().item() > 1e-3:
+        worst = got.abs().max().item()
+        if not bool(torch.isfinite(got).all()) or worst > 1e-3 or \
+                (low != "mxu" and worst != 0.0):
             fail(f"ei_kernel {low} extreme: scores of equal mixtures are "
-                 f"not ~0")
-        print(f"ei_kernel {low} extreme: max |ei| = "
-              f"{got.abs().max().item():.3g}")
+                 f"not 0 (max |ei| = {worst:.3g})")
+        print(f"ei_kernel {low} extreme: max |ei| = {worst:.3g}")
     print(f"ei_kernel: {ei_mod.ei_scores.launches - launches0} kernel "
           f"launches in this phase (checks, warm-up and timing)")
     return out
@@ -566,7 +637,10 @@ def main():
                      "replaces": replaces, "launches": n,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": None})
+                     "bound_by": k["bound_by"], "library_ms": None,
+                     "ms_2048": k["ms_2048"],
+                     "bound_ms_2048": k["bound_ms_2048"],
+                     "launches_per_window": LAUNCHES_PER_WINDOW})
     print("kernels: " + ", ".join(r["name"] for r in rows))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -81,6 +81,29 @@ def _lib_path(name, src: bytes) -> Path:
     return _BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
+def compile_library(source, out) -> subprocess.Popen:
+    """Start ``nvcc`` with the port's flags on the CUDA ``source``, writing
+    the shared library ``out``.  Returns the process; its output (the
+    compiler's report) is on its ``stdout`` pipe."""
+    return subprocess.Popen([_nvcc(), *_NVCC_FLAGS, "-o", str(out),
+                             str(source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def load_library(path, entries) -> ctypes.CDLL:
+    """Load a kernel library and declare the argument types of its
+    ``entries`` (names of C entry points, which all take the same
+    arguments)."""
+    dll = ctypes.CDLL(str(path))
+    for entry in entries:
+        fn = getattr(dll, entry)
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return dll
+
+
 def build() -> dict:
     """Compile every kernel library that is missing, one ``nvcc`` per
     source, all started together; load them all.
@@ -95,9 +118,7 @@ def build() -> dict:
             continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = compile_library(source, tmp)
         started[name] = (path, tmp, proc, time.perf_counter())
     out = {}
     for name, (path, tmp, proc, t0) in started.items():
@@ -112,12 +133,8 @@ def build() -> dict:
         out[name] = (path, seconds)
     for name, (path, _seconds) in out.items():
         if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(path))
-    for lib_name, entry in _ENTRIES.values():
-        fn = getattr(_libs[lib_name], entry)
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+            _libs[name] = load_library(
+                path, [e for lib, e in _ENTRIES.values() if lib == name])
     return out
 
 

@@ -11,6 +11,8 @@ and the division and computes the square in f32; the twin does the same.
 The CUDA kernels run only on the card (``tests/test_torch_ei_scores.py``
 has the ``cuda``-marked check; ``chip_smoke.py`` the full shapes)."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -65,6 +67,67 @@ def test_twin_matches_pallas_interpret(low, c, n, kb, ka):
     want = np.asarray(ei_jax(*(jnp.asarray(a) for a in (z, *below, *above)),
                              tile=128, interpret=True, **kw))
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def _bf16_grid():
+    """Every bf16 significand (128) at exponents -3..3, both signs: 1,792
+    values, as float32."""
+    sign, exp, mant = np.meshgrid([0, 1], np.arange(-3, 4), np.arange(128),
+                                  indexing="ij")
+    bits = (sign << 15) | ((127 + exp) << 7) | mant
+    return torch.as_tensor(bits.ravel().astype(np.int16)).view(
+        torch.bfloat16).float()
+
+
+def _bf16_bits(x):
+    return x.bfloat16().view(torch.int16)
+
+
+def _bf16_scores_with_reciprocal(z, below, above):
+    """The bf16 twin's scores, computed here with the division by
+    bf16(sigma) replaced by a multiply with its float32 reciprocal, as K2
+    computes them."""
+    def lse(logw, mu, sg):
+        logw, mu, sg = (torch.as_tensor(a) for a in (logw, mu, sg))
+        live = logw > -math.inf
+        cb = torch.where(live, logw - torch.log(sg)
+                         - 0.5 * math.log(2.0 * math.pi),
+                         torch.full_like(logw, -math.inf))
+        mu_h = torch.where(live, mu, torch.zeros_like(mu)).bfloat16()
+        rcp = 1.0 / torch.where(live, sg,
+                                torch.ones_like(sg)).bfloat16().float()
+        d = (torch.as_tensor(z).bfloat16()[:, :, None]
+             - mu_h[:, None, :]).float()
+        t = (d * rcp[:, None, :]).bfloat16().float()
+        return torch.logsumexp(cb[:, None, :] + (-0.5 * t * t), dim=-1)
+
+    return (lse(*below) - lse(*above)).numpy()
+
+
+def test_bf16_reciprocal_identity():
+    """K2 multiplies by a float32 reciprocal of bf16(sigma), folded once
+    per component, where the twin divides: for bf16 d and s,
+    bf16(d * (1/s)) == bf16(d / s) in float32 round-to-nearest.  Every
+    pair of significands at exponent offsets -3..3 of each operand and
+    both signs: 1,792 x 1,792 pairs.  Then, on the test shapes, the bf16
+    twin's scores with that multiply in place of its division have the
+    twin's bits."""
+    g = _bf16_grid()
+    d, s = g[:, None], g[None, :]
+    assert d.dtype == torch.float32
+    quot = _bf16_bits(d / s)
+    prod = _bf16_bits(d * (1.0 / s))
+    assert quot.numel() == 1792 * 1792
+    assert torch.equal(quot, prod)
+    # The float32 values themselves do differ: the identity is about the
+    # bf16 rounding, not the product.
+    assert not torch.equal(d / s, d * (1.0 / s))
+    for c, n, kb, ka in SHAPES:
+        z, below, above = _case(c, n, kb, ka, seed=2)
+        want = _port(z, below, above, bf16=True)
+        got = _bf16_scores_with_reciprocal(z, below, above)
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
 
 
 @pytest.mark.parametrize("c,n,kb,ka", SHAPES)

@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "hyperopt_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_ei_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "hyperopt_tpu")
 
 

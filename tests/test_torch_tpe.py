@@ -12,7 +12,9 @@ hyperopt_tpu.
 * ``convert`` carries a JAX ``Trials`` over with an identical history.
 """
 
+import importlib.util
 from functools import partial
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -27,8 +29,11 @@ from hyperopt_tpu import tpe as tpe_j
 from hyperopt_tpu.space import compile_space as compile_j
 from hyperopt_tpu_torch import convert
 from hyperopt_tpu_torch import tpe as tpe_t
+from hyperopt_tpu_torch.ops.gmm import truncate_mixture
 from hyperopt_tpu_torch.space import compile_space as compile_t
 from zoo import ZOO
+
+ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(autouse=True)
@@ -254,3 +259,48 @@ def test_trials_from_jax_docs_history_equal():
     assert ten["vals"].dtype == torch.float32
     assert ten["ok"].dtype == torch.bool
     np.testing.assert_array_equal(ten["loss"].numpy(), hjx["loss"])
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _is_prefix(lw):
+    live = torch.isfinite(lw)
+    return bool((live[..., 1:] <= live[..., :-1]).all())
+
+
+@pytest.mark.parametrize("n,n_cap", [(50, 64), (100, 128)])
+def test_fitted_mixtures_keep_live_components_first(n, n_cap):
+    """The premise of the EI kernels' dead-tail stop: in every column of
+    the fits the step scores, below and above, and of their top-m
+    truncation, the finite log-weights form a prefix.  The space is
+    chip_smoke's 10-dim flagship with the conditional ``lr`` and
+    ``depth``, inactive in part of the history.  (The kernels stay right
+    without it: a dead component anywhere adds exactly 0.)"""
+    smoke = _chip_smoke()
+    cs = compile_t(smoke.flagship_space(10))
+    h = smoke.synthetic_trials(cs, n, 3, "cpu").history(cs)
+    vals, active, loss, ok = (torch.as_tensor(a) for a in
+                              tpe_t._padded_history(h, n_cap))
+    cond = [p.pid for p in cs.params if p.label in ("lr", "depth")]
+    assert len(cond) == 2
+    assert not bool(active[:n, cond].all())         # inactive trials
+    assert bool(active[:n, cond].any(dim=0).all())  # and active ones
+    kern = tpe_t.get_kernel(cs, n_cap, 128, 25, device="cpu")
+    below, above = kern._split(loss, ok, 0.25)
+    n_fits = dead_tails = 0
+    for gt in kern._gt:
+        lwb, mub, sgb, lwa, mua, sga = kern._cont_fit(
+            gt, vals, active, below, above, 1.0)
+        for lw in (lwb, lwa):
+            assert _is_prefix(lw)
+            n_fits += lw.shape[0]
+            dead_tails += int((~torch.isfinite(lw[:, -1])).sum())
+        for m in (1, 8, 40, n_cap):
+            assert _is_prefix(truncate_mixture(lwa, mua, sga, m)[0])
+    assert n_fits == 2 * 10 and dead_tails == n_fits  # 10 fitted columns
