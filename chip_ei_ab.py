@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Time two versions of ``csrc/ei_scores.cu`` (K1 f32 and K2 bf16) against
-each other on one NVIDIA GPU, in turns.
+"""Time two versions of an EI kernel source against each other on one
+NVIDIA GPU, in turns.
 
 Run from the repository root::
 
     python3 chip_ei_ab.py --parent build/parent/ei_scores.cu [--out DIR]
+    python3 chip_ei_ab.py --parent build/parent/ei_scores_mxu.cu [--out DIR]
 
-``--parent`` is another version of the source (for example the previous
-commit's, put under the git-ignored ``build/``); the other is this tree's.
-Each is compiled by the port's own build code (``ops.ei_scores``: one
-``nvcc`` each, both started together) into ``--out`` and loaded with
-``ctypes``; the port's launch counts are not touched.  At two shapes, the
-TPE step's slice (31 x 10,000 x (26 + 1,025), 1,022 live above) and the
-2,048 bucket's (31 x 10,000 x (26 + 2,049), 1,030 live above as a
-prefix), both forms of both versions are held against the plain PyTorch
-version at ``chip_smoke.TOL``, then timed with ``chip_smoke.cuda_ms``
+``--parent`` is another version of a source in ``hyperopt_tpu_torch/csrc``
+(for example the previous commit's, put under the git-ignored ``build/``);
+its file name picks this tree's source it is timed against and the forms:
+``ei_scores.cu`` holds K1 (f32) and K2 (bf16), ``ei_scores_mxu.cu`` K3
+(mxu, the tensor-core form).  Each is compiled by the port's own build
+code (``ops.ei_scores``: one ``nvcc`` each, both started together) into
+``--out`` and loaded with ``ctypes``; the port's launch counts are not
+touched.  At two shapes, the TPE step's slice (31 x 10,000 x (26 +
+1,025), 1,022 live above) and the 2,048 bucket's (31 x 10,000 x (26 +
+2,049), 1,030 live above as a prefix), every form of both versions is
+held against the plain PyTorch version at ``chip_smoke.TOL``, then
+timed with ``chip_smoke.cuda_ms``
 (CUDA events, median of 25 windows of ``chip_smoke.LAUNCHES_PER_WINDOW``
 back-to-back launches, after warm-up) in the order parent, new, new,
 parent.
@@ -42,14 +46,25 @@ import chip_smoke as cs  # noqa: E402
 from hyperopt_tpu_torch.ops import ei_scores as ei_mod  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
-SOURCE = ROOT / "hyperopt_tpu_torch" / "csrc" / "ei_scores.cu"
+CSRC = ROOT / "hyperopt_tpu_torch" / "csrc"
 SHAPES = {"slice": (31, cs.N_CAND, 26, 1025, 1022),
           "b2048": (31, cs.N_CAND, 26, 2049, 1030)}
-FORMS = {"f32": ("ei_scores_launch", {}),
-         "bf16": ("ei_scores_bf16_launch", {"bf16": True})}
+# Source file name -> {form: (C entry point, ei_scores keywords)}.
+FORMS = {"ei_scores.cu": {"f32": ("ei_scores_launch", {}),
+                          "bf16": ("ei_scores_bf16_launch", {"bf16": True})},
+         "ei_scores_mxu.cu": {"mxu": ("ei_scores_mxu_launch", {"mxu": True})}}
 
 
-def build(sources, out_dir):
+def kernel_form(entry_line, forms):
+    """The form whose kernel a ``Compiling entry`` line of ``ptxas -v``
+    names: the only form of a one-kernel source, else bf16 for the
+    ``kBf16 = true`` instance of ``ei_scores.cu``'s template."""
+    if len(forms) == 1:
+        return next(iter(forms))
+    return "bf16" if "ILb1E" in entry_line else "f32"
+
+
+def build(sources, out_dir, forms):
     """``{name: source}`` -> ``{name: CDLL}``, all compiled together;
     prints each form's register and spill report."""
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -64,11 +79,11 @@ def build(sources, out_dir):
         form = None
         for line in log.splitlines():
             if "Compiling entry" in line:
-                form = "bf16" if "ILb1E" in line else "f32"
+                form = kernel_form(line, forms)
             elif "registers" in line or "spill" in line:
                 print(f"build {name} {form}: {line.strip()}")
         libs[name] = ei_mod.load_library(
-            lib, [entry for entry, _ in FORMS.values()])
+            lib, [entry for entry, _ in forms.values()])
     return libs
 
 
@@ -77,6 +92,9 @@ def main(argv=None):
     ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "ei_ab")
     args = ap.parse_args(argv)
+    forms = FORMS.get(args.parent.name)
+    if forms is None:
+        ap.error(f"--parent must be named one of {sorted(FORMS)}")
     if not torch.cuda.is_available():
         print("chip_ei_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -87,7 +105,8 @@ def main(argv=None):
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     dev = torch.device("cuda", 0)
-    libs = build({"new": SOURCE, "parent": args.parent}, args.out)
+    libs = build({"new": CSRC / args.parent.name, "parent": args.parent},
+                 args.out, forms)
     result = {"card": card, "launches_per_window": cs.LAUNCHES_PER_WINDOW,
               "shapes": {}}
     stream = torch.cuda.current_stream().cuda_stream
@@ -100,7 +119,7 @@ def main(argv=None):
         args_in = (z, *below, *above)
         ptrs = [t.data_ptr() for t in args_in]
         rows = {}
-        for form, (entry, kw) in FORMS.items():
+        for form, (entry, kw) in forms.items():
             ref = ei_mod.ei_scores_reference(*args_in, **kw)
             bound_ms, bound_by = cs.ei_bound_ms(z, below[0], above[0], form)
             outs = {name: torch.empty_like(z) for name in libs}

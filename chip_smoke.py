@@ -100,8 +100,9 @@ HBM_BYTES_PER_S = 3.35e12
 # f32: z - mu, * 1/sigma, fma for cb - t*t (2), - max, + sum.  bf16: the
 # same plus two roundings to bf16 (2 each); its division is a multiply by
 # a reciprocal folded once per component, so it adds nothing per term.
-# mxu: the online update (- max, |.|, compare, fma or add).
-FLOP_PER_TERM = {"f32": 6, "bf16": 10, "mxu": 4}
+# mxu: the stepped update (max, - max, + sum); the term itself comes from
+# the tensor cores.
+FLOP_PER_TERM = {"f32": 6, "bf16": 10, "mxu": 3}
 # Back-to-back calls inside one pair of CUDA events when a kernel is timed.
 LAUNCHES_PER_WINDOW = 10
 
@@ -241,18 +242,22 @@ def ei_bound_ms(z, logw_b, logw_a, low):
     """Least time the card needs for one EI launch of lowering ``low`` on
     these inputs: the exps of the live (finite-weight) terms on the
     special-function units, the float32 arithmetic around them, the
-    tensor-core work of the mxu form (three TF32 passes over 16 x 8 x 8
-    tiles), or the bytes moved, whichever is largest.  Returns
-    ``(ms, "operations" | "bytes")``."""
+    tensor-core work of the mxu form (one packed 3xTF32 m16n8k8 product
+    per 16 x 8 tile that holds a live component), or the bytes moved,
+    whichever is largest.  Returns ``(ms, "operations" | "bytes")``."""
     c, n = z.shape
     live = int(torch.isfinite(logw_b).sum() + torch.isfinite(logw_a).sum())
     terms = n * live
     op_s = max(terms / EXP_PER_S,
                terms * FLOP_PER_TERM[low] / F32_FLOP_PER_S)
     if low == "mxu":
-        tiles = c * -(-n // 16) * sum(-(-w.shape[1] // 8)
-                                      for w in (logw_b, logw_a))
-        op_s = max(op_s, tiles * 3 * 2 * 16 * 8 * 8 / TF32_FLOP_PER_S)
+        live_tiles = 0
+        for w in (logw_b, logw_a):
+            pad = torch.nn.functional.pad(torch.isfinite(w).int(),
+                                          (0, -w.shape[1] % 8))
+            live_tiles += int(pad.view(c, -1, 8).amax(dim=2).sum())
+        tiles = -(-n // 16) * live_tiles
+        op_s = max(op_s, tiles * 2 * 16 * 8 * 8 / TF32_FLOP_PER_S)
     nbytes = 4 * (2 * c * n + 3 * (logw_b.numel() + logw_a.numel()))
     byte_s = nbytes / HBM_BYTES_PER_S
     if op_s >= byte_s:
@@ -393,7 +398,7 @@ def phase_ei_kernel(dev):
               f"({int((~dead_b).sum())} live) K_a={dead_a.size} "
               f"({int((~dead_a).sum())} live) max_abs_err={err:.3g}")
     # Far-tail candidates against narrow and wide components: finite, and
-    # identical below/above mixtures score 0 (exactly, for f32 and bf16).
+    # identical below/above mixtures score exactly 0.
     logw = torch.log(torch.tensor([[0.5, 0.5], [0.9, 0.1]], device=dev))
     mu = torch.tensor([[-50.0, 50.0], [0.0, 1e4]], device=dev)
     sg = torch.tensor([[1e-3, 1e3], [0.5, 10.0]], device=dev)
@@ -402,8 +407,7 @@ def phase_ei_kernel(dev):
     for low, (_, _, _, kw, _) in KERNELS.items():
         got = ei_mod.ei_scores(z, logw, mu, sg, logw, mu, sg, **kw)
         worst = got.abs().max().item()
-        if not bool(torch.isfinite(got).all()) or worst > 1e-3 or \
-                (low != "mxu" and worst != 0.0):
+        if not bool(torch.isfinite(got).all()) or worst != 0.0:
             fail(f"ei_kernel {low} extreme: scores of equal mixtures are "
                  f"not 0 (max |ei| = {worst:.3g})")
         print(f"ei_kernel {low} extreme: max |ei| = {worst:.3g}")

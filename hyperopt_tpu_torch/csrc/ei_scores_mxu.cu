@@ -7,60 +7,109 @@
 // with the exponent expanded as a quadratic in the candidate:
 //
 //   term = cb - (z - mu)^2 / (2 sg^2) = a2 z^2 + a1 z + a0,
-//   a2 = -1/(2 sg^2),  a1 = mu / sg^2,  a0 = max(cb - mu^2/(2 sg^2), -1e30),
-//
-// so that a [16 candidates, 8] x [8, 8 components] block of terms is one
-// warp-level tensor-core product of the features [z^2, z, 1, 0, 0, 0, 0, 0]
-// with the coefficients.  A dead component (logw = -inf or NaN, any mu and
-// sigma) and the ragged K edge get the coefficients (0, 0, -1e30): a
-// finite floor, so that the product never makes a NaN and the term still
-// adds exactly 0.
+//   a2 = -1/(2 sg^2),  a1 = mu / sg^2,  a0 = max(cb - mu^2/(2 sg^2), -1e30).
 //
 // Replaces hyperopt_tpu/ops/pallas_gmm.py::_ei_kernel_mxu (ei_scores with
 // mxu=True), which computes the [T, 3] @ [3, K] product on the TPU's
 // matrix unit at Precision.HIGHEST.  That precision is load-bearing: the
 // three products are O(mu^2 / sg^2) and cancel to the small true
-// exponent, so one pass in a short type loses whole units of log-density.
-// Here each product is mma.sync.m16n8k8 in TF32 with float32 accumulation,
-// three times per tile ("3xTF32": both operands split as hi + lo in TF32,
-// then hi*hi + hi*lo + lo*hi), which keeps about 22 of float32's 24 bits.
+// exponent, so one pass in a short type loses whole units of
+// log-density.  Here both operands are split into TF32 hi + lo
+// ("3xTF32": hi*hi + hi*lo + lo*hi, about 22 of float32's 24 bits).
 //
-// What bounds it on an H100: the same exps as ei_scores.cu, one per live
-// (column, candidate, component) term, ~3.2e8 at the main path's shape,
-// ~0.08 ms on the special-function units.  The tensor cores take over the
-// ~4 float32 operations per term around the exp, which were not the
-// bound; their own work (3 passes, mostly over the zero padding of the
-// contraction from 3 to 8) is ~1.6e10 flop, ~0.03 ms at the dense TF32
-// rate.  One exp per term: the log-sum-exp is an online update whose
-// single exp2 either rescales the running sum (new max) or adds the term.
+// What bounds it on an H100: one exp per live (column, candidate,
+// component) term on the special-function units, 16 results per SM per
+// clock: ~3.2e8 terms at the main path's shape (31 x 10,000 x (25 +
+// 1022)), ~0.078 ms.  The bytes moved (~2.5 MB) are negligible, and the
+// tensor-core work is a small fraction of the exp time.  So the design
+// spends as few other instructions per term as it can:
 //
-// Grid: (candidate block, column); 8 warps of 16 candidates each.  The
-// coefficients are folded, scaled to base 2 and split into TF32 hi/lo
-// while a chunk of components is staged in shared memory, so K has no
-// upper limit.  Thread (g = lane / 4, t = lane % 4) of a warp holds the
-// features of candidates g and g + 8 in column t of A, the coefficient t
-// of component g in B, and gets the terms of candidates g and g + 8 with
-// components 2t and 2t + 1 in C; each row's max and sum are merged over
-// the four lanes of the quad with shuffles at the end.
+// 1. One packed product per tile.  3xTF32 of [z^2, z, 1] . [a2, a1, a0]
+//    is eight products (the feature 1 has no low part): exactly the depth
+//    of one mma.sync.m16n8k8.  A row is
+//      [z^2_hi, z_hi, 1, z^2_hi, z_hi, 1, z^2_lo, z_lo]
+//    and a B column (one component)
+//      [a2_hi, a1_hi, a0_hi, a2_lo, a1_lo, a0_lo, a2_hi, a1_hi],
+//    so a 16 x 8 tile of terms is one product with a zero accumulator.
+//    Each thread builds its A fragments once per kernel.  The eight TF32
+//    values of a component are folded, scaled to base 2 and split while
+//    a chunk is staged, stored as four pairs (rows t, t + 4) so that lane
+//    (g, t) reads its B fragment with one 8-byte shared load.  Dead
+//    components (logw = -inf or NaN, any mu and sigma) and the ragged K
+//    edge stage the coefficients (0, 0, -1e30), split the same way: a
+//    finite floor, so that the product never makes a NaN and the term
+//    adds exactly 0.  The CPU test of the packing is
+//    tests/test_torch_ei_lowerings.py::test_packed_3xtf32_products.
+// 2. A stepped log-sum-exp.  Per step each thread takes the terms of
+//    kTilesB consecutive n8 tiles (2 kTilesB terms per row), takes their
+//    max per row, rescales its running sum once and adds the exps, in
+//    base 2 with the bare ex2.approx.ftz (its arguments are <= 0, and a
+//    flushed subnormal changes a sum of order >= 1 by less than 1e-38):
+//    a max, a subtract and an add per term beside its exp.  The steps are
+//    software-pipelined over two register sets: the products of the next
+//    step are issued before the exps of this one, so the tensor cores and
+//    the special-function units work at the same time.  The running max
+//    starts at -FLT_MAX.  A floor term may be the running max only until
+//    the first live term of its row, whose rescale then flushes the
+//    floor's sum to exactly 0.  Lanes of a quad hold different components
+//    of the same rows; they are merged by shuffles once, at the end.
+// 3. No dead tail.  While a chunk is staged the block votes on its last
+//    live component (a warp max, then the block's warps through shared
+//    memory) and scans only up to the step that holds it; a chunk with
+//    none is skipped.  The bound is block-uniform, so every lane of a
+//    warp issues the same mma.sync.  The above mixture is sized n_cap + 1
+//    and its live components are a prefix (pinned by tests/
+//    test_torch_tpe.py::test_fitted_mixtures_keep_live_components_first),
+//    so the 2,048 bucket's dead half costs only its staging.  The step
+//    that holds the last live component is scored whole: at that bucket
+//    (1,030 live) 26 of the 1,088 components scored are dead.  Voting
+//    before staging, so that a dead chunk is not staged, was tried and
+//    ran slower at the slice (PERF.md §6).
+// 4. Filling the card.  4 warps of 32 candidates (two A tiles, so each B
+//    fragment feeds two products), 4 tiles per step: ptxas allocates 78
+//    registers, no spills, so 6 blocks of 128 threads are resident per SM
+//    and the slice shape's 2,449 blocks take 3.09 waves over 132 SMs, in
+//    4 rounds whose last holds 73 blocks.  Trial builds timed in turns
+//    against this shape on the card (PERF.md §6) that fill the rounds
+//    better ran slower: a register cap for 8 blocks per SM (3 rounds, 64
+//    registers and a spill) by 5-6%, 5 warps per block (2.96 waves) by
+//    8-10%; 8 warps per block, 16 candidates per warp, and 2 or 8 tiles
+//    per step were not faster either.  So the near-empty last round is
+//    kept: its few blocks do not share an SM's exp units with others,
+//    so it costs less than a full round.
 //
-// Left for later: wgmma, TMA staging, and more candidates per warp (each
-// B fragment now feeds one 16-row tile).
+// Not used: wgmma and TMA.  After item 1 the tensor work is a third of
+// the parent's and below the exp bound, and the staged mixtures are a
+// few kilobytes per column, so there is no copy to hide.
+//
+// Equal mixtures score exactly 0: both go through the same code in the
+// same order, and the final difference uses explicitly rounded ops.
+//
+// Grid: (candidate block, column); rows past n score z = 0 and are not
+// written.  Components are staged kChunk at a time, so K has no upper
+// limit and needs no padding.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;                    // warps per block
+constexpr int kTilesA = 2;                   // 16-row A tiles per warp
+constexpr int kTilesB = 4;                   // n8 component tiles per step
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 16;                    // candidates per warp (MMA M)
-constexpr int kBlockRows = kWarps * kRows;   // candidates per block
+constexpr int kWarpRows = 16 * kTilesA;      // candidates per warp
+constexpr int kBlockRows = kWarps * kWarpRows;
+constexpr int kStep = 8 * kTilesB;           // components per step
 constexpr int kChunk = 512;                  // components staged at a time
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.69314718055994531f;
 constexpr float kFloor = -1e30f;
+constexpr uint32_t kOneTf32 = 0x3f800000u;   // 1.0f, exact in TF32
+static_assert(kChunk % kThreads == 0 && kChunk % kStep == 0, "chunk");
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -74,94 +123,201 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
-// c += A * B for one m16n8k8 tile.  A's columns 4..7 and B's rows 4..7
-// are zero, so their fragments (a2, a3, b1) are passed as 0.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a_row_g,
-                                         uint32_t a_row_g8, uint32_t b) {
-  const uint32_t zero = 0u;
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a_row_g), "r"(a_row_g8), "r"(zero), "r"(zero), "r"(b),
-        "r"(zero));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Online base-2 log-sum-exp with one exp2 per term.
-__device__ __forceinline__ void online_add(float x, float& m, float& s) {
-  const float d = x - m;
-  const float e = exp2f(-fabsf(d));
-  const bool up = d > 0.0f;
-  s = up ? fmaf(s, e, 1.0f) : s + e;
-  m = up ? x : m;
+// This thread's A fragment of one 16-row tile: (row g, col t), (row g+8,
+// col t), (row g, col t+4), (row g+8, col t+4) of the packed rows.
+struct AFrag {
+  uint32_t r[4];
+};
+
+// Columns t and t + 4 of the packed row of candidate z.
+__device__ __forceinline__ void packed_cols(float z, int t, uint32_t& lo_col,
+                                            uint32_t& hi_col) {
+  uint32_t q_hi, q_lo, z_hi, z_lo;
+  split_tf32(z * z, q_hi, q_lo);
+  split_tf32(z, z_hi, z_lo);
+  // Row: [z^2_hi, z_hi, 1, z^2_hi, z_hi, 1, z^2_lo, z_lo].
+  lo_col = t == 0 ? q_hi : (t == 1 ? z_hi : (t == 2 ? kOneTf32 : q_hi));
+  hi_col = t == 0 ? z_hi : (t == 1 ? kOneTf32 : (t == 2 ? q_lo : z_lo));
+}
+
+// Stage one component as four pairs (B rows t, t + 4), t = 0..3, of the
+// column [a2_hi, a1_hi, a0_hi, a2_lo, a1_lo, a0_lo, a2_hi, a1_hi], with
+// the coefficients in base 2.
+__device__ __forceinline__ void stage_component(float lw, float mu,
+                                                float sg, uint4* dst) {
+  float a2 = 0.0f, a1 = 0.0f, a0 = kFloor;
+  if (lw > -INFINITY) {
+    const float inv2 = 1.0f / (sg * sg);
+    a2 = -0.5f * inv2;
+    a1 = mu * inv2;
+    a0 = fmaxf((lw - logf(sg) - kHalfLog2Pi) - 0.5f * mu * mu * inv2,
+               kFloor);
+  }
+  uint32_t h2, l2, h1, l1, h0, l0;
+  split_tf32(a2 * kLog2e, h2, l2);
+  split_tf32(a1 * kLog2e, h1, l1);
+  split_tf32(a0 * kLog2e, h0, l0);
+  // Pairs t = 0: (a2_hi, a1_lo), 1: (a1_hi, a0_lo), 2: (a0_hi, a2_hi),
+  // 3: (a2_lo, a1_hi).
+  dst[0] = make_uint4(h2, l1, h1, l0);
+  dst[1] = make_uint4(h0, h2, l2, h1);
+}
+
+// d = A * B for one m16n8k8 tile, zero accumulator.
+__device__ __forceinline__ void mma_packed(float (&d)[4], const AFrag& a,
+                                           uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.x),
+        "r"(b.y), "f"(0.0f), "f"(0.0f), "f"(0.0f), "f"(0.0f));
+}
+
+// Terms of one step: kTilesB tiles of components at `st` (the step's first
+// staged component) against this warp's kTilesA row tiles.  d[a][j] holds
+// rows g (0, 1) and g + 8 (2, 3), components 2t and 2t + 1 of tile j.
+__device__ __forceinline__ void step_terms(
+    const uint2* st, const AFrag (&fa)[kTilesA],
+    float (&d)[kTilesA][kTilesB][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kTilesB; ++j) {
+    const uint2 b = st[(j * 8 + g) * 4 + t];
+#pragma unroll
+    for (int a = 0; a < kTilesA; ++a) mma_packed(d[a][j], fa[a], b);
+  }
+}
+
+// One step of the stepped log-sum-exp: per row (a, h), the max of the
+// step's terms, one rescale of the running sum, then the exps.
+__device__ __forceinline__ void step_exps(
+    const float (&d)[kTilesA][kTilesB][4], float (&m)[kTilesA][2],
+    float (&s)[kTilesA][2]) {
+#pragma unroll
+  for (int a = 0; a < kTilesA; ++a) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float cm = fmaxf(d[a][0][2 * h], d[a][0][2 * h + 1]);
+#pragma unroll
+      for (int j = 1; j < kTilesB; ++j) {
+        cm = fmaxf(cm, fmaxf(d[a][j][2 * h], d[a][j][2 * h + 1]));
+      }
+      const float nm = fmaxf(m[a][h], cm);
+      s[a][h] *= ex2(m[a][h] - nm);
+      m[a][h] = nm;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kTilesB; ++j) {
+#pragma unroll
+    for (int a = 0; a < kTilesA; ++a) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[a][h] += ex2(d[a][j][2 * h] - m[a][h]) +
+                   ex2(d[a][j][2 * h + 1] - m[a][h]);
+      }
+    }
+  }
 }
 
 // Merge (m, s) over the four lanes of a quad; every lane ends with the
-// same result.
+// same result (the two sides are rounded alike, so no lane's fma
+// contraction makes it differ).
 __device__ __forceinline__ void quad_merge(float& m, float& s) {
+#pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     const float mo = __shfl_xor_sync(0xffffffffu, m, off);
     const float so = __shfl_xor_sync(0xffffffffu, s, off);
     const float mm = fmaxf(m, mo);
-    s = (m == mm ? s : s * exp2f(m - mm)) + (mo == mm ? so : so * exp2f(mo - mm));
+    s = __fadd_rn(__fmul_rn(s, ex2(m - mm)), __fmul_rn(so, ex2(mo - mm)));
     m = mm;
   }
 }
 
-// Base-2 LSEs of candidates g and g + 8 of this warp's tile over one
-// mixture.  fg_* / fh_* are this thread's TF32 features of the two rows.
-__device__ void mixture_lse(uint32_t fg_hi, uint32_t fg_lo, uint32_t fh_hi,
-                            uint32_t fh_lo, const float* __restrict__ logw,
-                            const float* __restrict__ mu,
-                            const float* __restrict__ sg, int k,
-                            uint32_t* stage_hi, uint32_t* stage_lo,
-                            float& lse_g, float& lse_h) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  float m0 = -INFINITY, s0 = 0.0f;   // row g
-  float m1 = -INFINITY, s1 = 0.0f;   // row g + 8
-  for (int k0 = 0; k0 < k; k0 += kChunk) {
-    const int kn = min(kChunk, k - k0);
-    const int kn8 = (kn + 7) & ~7;
-    __syncthreads();  // the previous chunk is no longer read
-    for (int j = threadIdx.x; j < kn8; j += kThreads) {
-      float a2 = 0.0f, a1 = 0.0f, a0 = kFloor;
-      if (j < kn) {
-        const float lw = logw[k0 + j];
-        if (lw > -INFINITY) {
-          const float s = sg[k0 + j];
-          const float u = mu[k0 + j];
-          const float inv2 = 1.0f / (s * s);
-          a2 = -0.5f * inv2;
-          a1 = u * inv2;
-          a0 = fmaxf((lw - logf(s) - kHalfLog2Pi) - 0.5f * u * u * inv2,
-                     kFloor);
-        }
-      }
-      const float coef[4] = {a2 * kLog2e, a1 * kLog2e, a0 * kLog2e, 0.0f};
+// Base-2 LSEs over one mixture of this thread's rows: lse[a][0] is row g
+// of tile a, lse[a][1] row g + 8.
+__device__ __forceinline__ void mixture_lse(
+    const AFrag (&fa)[kTilesA], const float* __restrict__ logw,
+    const float* __restrict__ mu, const float* __restrict__ sg, int k,
+    uint4* stage, int* warp_last, float (&lse)[kTilesA][2]) {
+  float m[kTilesA][2], s[kTilesA][2];  // running max and sum of exp2
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        split_tf32(coef[q], stage_hi[j * 4 + q], stage_lo[j * 4 + q]);
-      }
-    }
-    __syncthreads();
-    for (int j0 = 0; j0 < kn8; j0 += 8) {
-      const int idx = (j0 + g) * 4 + t;
-      const uint32_t b_hi = stage_hi[idx], b_lo = stage_lo[idx];
-      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      mma_tf32(c, fg_lo, fh_lo, b_hi);
-      mma_tf32(c, fg_hi, fh_hi, b_lo);
-      mma_tf32(c, fg_hi, fh_hi, b_hi);
-      online_add(c[0], m0, s0);
-      online_add(c[1], m0, s0);
-      online_add(c[2], m1, s1);
-      online_add(c[3], m1, s1);
+  for (int a = 0; a < kTilesA; ++a) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // A finite start keeps m - max finite: ex2 of it is 0 once a term
+      // raises the max, and s is 0 until then.
+      m[a][h] = -FLT_MAX;
+      s[a][h] = 0.0f;
     }
   }
-  quad_merge(m0, s0);
-  quad_merge(m1, s1);
-  lse_g = __fadd_rn(m0, log2f(s0));
-  lse_h = __fadd_rn(m1, log2f(s1));
+  const uint2* stage2 = reinterpret_cast<const uint2*>(stage);
+  for (int k0 = 0; k0 < k; k0 += kChunk) {
+    const int kn = min(kChunk, k - k0);
+    // Slots past kn up to the end of its step are read; stage them dead.
+    const int kpad = min(kChunk, (kn + kStep - 1) / kStep * kStep);
+    __syncthreads();  // the previous chunk and its vote are no longer read
+    int last = -1;    // this thread's last live staged component
+#pragma unroll
+    for (int r = 0; r < kChunk / kThreads; ++r) {
+      const int j = r * kThreads + threadIdx.x;
+      if (j < kpad) {
+        float lw = -INFINITY, u = 0.0f, sd = 1.0f;
+        if (j < kn) {
+          lw = logw[k0 + j];
+          if (lw > -INFINITY) {
+            u = mu[k0 + j];
+            sd = sg[k0 + j];
+            last = j;
+          }
+        }
+        stage_component(lw, u, sd, stage + 2 * j);
+      }
+    }
+    last = __reduce_max_sync(0xffffffffu, last);
+    if ((threadIdx.x & 31) == 0) warp_last[threadIdx.x >> 5] = last;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) last = max(last, warp_last[w]);
+    // Block-uniform bound: no divergence around the mma.sync.  The steps
+    // past `last` would add exactly 0.
+    if (last < 0) continue;
+    // Two register sets of terms, da and db: the products of one step are
+    // issued before the exps of the step before it.
+    float da[kTilesA][kTilesB][4], db[kTilesA][kTilesB][4];
+    step_terms(stage2, fa, da);
+    for (int j0 = 0;; j0 += 2 * kStep) {
+      if (j0 + kStep > last) {
+        step_exps(da, m, s);
+        break;
+      }
+      step_terms(stage2 + (j0 + kStep) * 4, fa, db);
+      step_exps(da, m, s);
+      if (j0 + 2 * kStep > last) {
+        step_exps(db, m, s);
+        break;
+      }
+      step_terms(stage2 + (j0 + 2 * kStep) * 4, fa, da);
+      step_exps(db, m, s);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < kTilesA; ++a) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      quad_merge(m[a][h], s[a][h]);
+      lse[a][h] = __fadd_rn(m[a][h], log2f(s[a][h]));
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -173,36 +329,40 @@ ei_scores_mxu_kernel(const float* __restrict__ z,
                      const float* __restrict__ mu_a,
                      const float* __restrict__ sg_a,
                      float* __restrict__ out, int n, int kb, int ka) {
-  __shared__ uint32_t stage_hi[kChunk * 4];
-  __shared__ uint32_t stage_lo[kChunk * 4];
+  __shared__ uint4 stage[kChunk * 2];
+  __shared__ int warp_last[kWarps];
   const int c = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * kBlockRows + (threadIdx.x >> 5) * kRows;
-  const int ig = row0 + g, ih = row0 + g + 8;
-  // Every thread takes part in staging, so none returns early; rows past
-  // n score z = 0 and are not written.
-  const float zg = ig < n ? z[(size_t)c * n + ig] : 0.0f;
-  const float zh = ih < n ? z[(size_t)c * n + ih] : 0.0f;
-  // Column t of A: z^2, z, 1, 0.
-  const float feat_g = t == 0 ? zg * zg : (t == 1 ? zg : (t == 2 ? 1.0f : 0.0f));
-  const float feat_h = t == 0 ? zh * zh : (t == 1 ? zh : (t == 2 ? 1.0f : 0.0f));
-  uint32_t fg_hi, fg_lo, fh_hi, fh_lo;
-  split_tf32(feat_g, fg_hi, fg_lo);
-  split_tf32(feat_h, fh_hi, fh_lo);
-  float lb_g, lb_h, la_g, la_h;
-  mixture_lse(fg_hi, fg_lo, fh_hi, fh_lo, logw_b + (size_t)c * kb,
-              mu_b + (size_t)c * kb, sg_b + (size_t)c * kb, kb, stage_hi,
-              stage_lo, lb_g, lb_h);
-  mixture_lse(fg_hi, fg_lo, fh_hi, fh_lo, logw_a + (size_t)c * ka,
-              mu_a + (size_t)c * ka, sg_a + (size_t)c * ka, ka, stage_hi,
-              stage_lo, la_g, la_h);
-  // Explicitly rounded, as in ei_scores.cu: equal mixtures score exactly 0.
-  if (t == 0 && ig < n) {
-    out[(size_t)c * n + ig] = __fmul_rn(__fsub_rn(lb_g, la_g), kLn2);
+  const int row0 = blockIdx.x * kBlockRows + (threadIdx.x >> 5) * kWarpRows;
+  // Every thread takes part in staging, so none returns early.
+  AFrag fa[kTilesA];
+#pragma unroll
+  for (int a = 0; a < kTilesA; ++a) {
+    const int ig = row0 + 16 * a + g, ih = ig + 8;
+    const float zg = ig < n ? z[(size_t)c * n + ig] : 0.0f;
+    const float zh = ih < n ? z[(size_t)c * n + ih] : 0.0f;
+    packed_cols(zg, t, fa[a].r[0], fa[a].r[2]);
+    packed_cols(zh, t, fa[a].r[1], fa[a].r[3]);
   }
-  if (t == 1 && ih < n) {
-    out[(size_t)c * n + ih] = __fmul_rn(__fsub_rn(lb_h, la_h), kLn2);
+  float lb[kTilesA][2], la[kTilesA][2];
+  mixture_lse(fa, logw_b + (size_t)c * kb, mu_b + (size_t)c * kb,
+              sg_b + (size_t)c * kb, kb, stage, warp_last, lb);
+  mixture_lse(fa, logw_a + (size_t)c * ka, mu_a + (size_t)c * ka,
+              sg_a + (size_t)c * ka, ka, stage, warp_last, la);
+  // Every lane of a quad holds all of the quad's rows; lane t writes row
+  // (a, h) with 2a + h == t.  Explicitly rounded, as in ei_scores.cu:
+  // equal mixtures score exactly 0.
+#pragma unroll
+  for (int a = 0; a < kTilesA; ++a) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row0 + 16 * a + 8 * h + g;
+      if (t == ((2 * a + h) & 3) && i < n) {
+        out[(size_t)c * n + i] = __fmul_rn(__fsub_rn(lb[a][h], la[a][h]),
+                                           kLn2);
+      }
+    }
   }
 }
 

@@ -139,6 +139,128 @@ def test_mxu_twin_matches_f32_twin(c, n, kb, ka):
     np.testing.assert_array_equal(np.argmax(mxu, 1), np.argmax(f32, 1))
 
 
+# K3's packed 3xTF32 product (csrc/ei_scores_mxu.cu): what each lane (g, t)
+# of an m16n8k8 holds.  A fragment: columns t and t + 4 of a candidate's
+# row (packed_cols); B fragment: the staged pair t of a component, its
+# rows t and t + 4 (stage_component writes the pairs in this order).
+_LANE_A = (("q_hi", "z_hi"), ("z_hi", "one"), ("one", "q_lo"),
+           ("q_hi", "z_lo"))
+_STAGED = ("a2_hi", "a1_lo", "a1_hi", "a0_lo", "a0_hi", "a2_hi", "a2_lo",
+           "a1_hi")
+_LOG2E = np.float32(math.log2(math.e))
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` on float32 bit patterns: the 13 low bits of the
+    significand rounded away, ties away from zero (finite values)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split_tf32(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)           # x - hi is exact in float32
+
+
+def _packed_rows():
+    """The A row and B column of the packed product, read off the lanes'
+    fragments: column t of A and row t of B from element 0 of lane t's
+    pair, column and row t + 4 from element 1."""
+    a = [_LANE_A[t % 4][t // 4] for t in range(8)]
+    b = [_STAGED[2 * (t % 4) + t // 4] for t in range(8)]
+    return a, b
+
+
+def _packed_terms(z, logw, mu, sg):
+    """Natural-log terms ``[C, n, K]`` as K3 forms them: the coefficients
+    of ``mxu_coefficients`` scaled to base 2 and split, the features
+    split, the eight products of one m16n8k8 summed one by one in
+    float32 (each product of two TF32 values is exact in float32)."""
+    coef = [a.numpy()[:, None, :] * _LOG2E for a in ei_mod.mxu_coefficients(
+        *(torch.as_tensor(x) for x in (logw, mu, sg)))]
+    b_vals = {}
+    for name, x in zip(("a2", "a1", "a0"), coef):
+        b_vals[name + "_hi"], b_vals[name + "_lo"] = _split_tf32(x)
+    zz = z[:, :, None]
+    a_vals = {"one": np.float32(1.0)}
+    a_vals["q_hi"], a_vals["q_lo"] = _split_tf32(zz * zz)
+    a_vals["z_hi"], a_vals["z_lo"] = _split_tf32(zz)
+    a_row, b_col = _packed_rows()
+    acc = np.zeros(np.broadcast_shapes(zz.shape, coef[0].shape), np.float32)
+    for fa, fb in zip(a_row, b_col):
+        acc = acc + a_vals[fa] * b_vals[fb]
+    return acc / _LOG2E, coef, zz
+
+
+def _narrow_far_case():
+    """Narrow (sigma 1e-3) and wide components, candidates near them and
+    far out (|z| = 1e4)."""
+    rng = np.random.default_rng(7)
+    c, k = 2, 24
+    logw, mu, sg = _random_mixture(rng, c, k, k - 2)
+    sg[:, ::2] = 1e-3
+    near = mu[:, :12] + rng.normal(0, 2e-3, (c, 12)).astype(np.float32)
+    far = np.tile(np.asarray([1e4, -1e4, 9999.5, -1e4 + 0.25], np.float32),
+                  (c, 1))
+    z = np.concatenate([rng.normal(0, 3, (c, 40)).astype(np.float32), near,
+                        far], axis=1)
+    return z, logw, mu, sg
+
+
+def test_packed_rows_are_3xtf32():
+    """The eight products are hi*hi, hi*lo and lo*hi of z^2 a2 and z a1,
+    and hi and lo of a0 times the feature 1."""
+    a_row, b_col = _packed_rows()
+    assert a_row == ["q_hi", "z_hi", "one", "q_hi", "z_hi", "one", "q_lo",
+                     "z_lo"]
+    assert b_col == ["a2_hi", "a1_hi", "a0_hi", "a2_lo", "a1_lo", "a0_lo",
+                     "a2_hi", "a1_hi"]
+    feat = {"q": "a2", "z": "a1", "one": "a0"}
+    pairs = set()
+    for fa, fb in zip(a_row, b_col):
+        base = fa.split("_")[0]
+        assert feat[base] == fb[:2]
+        pairs.add((fa, fb))
+    assert len(pairs) == 8
+    want = {(f"{x}_{u}", f"{feat[x]}_{v}") for x in ("q", "z")
+            for u, v in (("hi", "hi"), ("hi", "lo"), ("lo", "hi"))}
+    want |= {("one", "a0_hi"), ("one", "a0_lo")}
+    assert pairs == want
+
+
+@pytest.mark.parametrize("case", [*SHAPES, "narrow_far"], ids=str)
+def test_packed_3xtf32_products(case):
+    """K3's one packed product per tile against the mxu twin's float32
+    terms.  Each operand keeps ~22 bits in hi + lo (the lo's own TF32
+    rounding and the dropped lo*lo product cost <= 3 * 2**-22 of each
+    product), and float32 rounding of the eight-step sum and of the
+    twin's three-term sum adds a few ulps of the largest product: about
+    2**-20 of the sum of the products' magnitudes in all (measured: under
+    2**-21).  The bound is 2**-18 of that sum, leaving room for the order
+    in which the tensor core adds its products, which the card decides."""
+    if case == "narrow_far":
+        z, *mixture = _narrow_far_case()
+        mixtures = [mixture]
+    else:
+        z, *mixtures = _case(*case, seed=1)
+    for logw, mu, sg in mixtures:
+        twin = ei_mod._terms_mxu(*(torch.as_tensor(a) for a in
+                                   (logw, mu, sg)))
+        step = max(1, (1 << 22) // (z.shape[0] * logw.shape[1]))
+        for i in range(0, z.shape[1], step):
+            zc = z[:, i:i + step]
+            got, coef, zz = _packed_terms(zc, logw, mu, sg)
+            want = twin(torch.as_tensor(zc)).numpy()
+            a2, a1, a0 = (x.astype(np.float64) / float(_LOG2E) for x in coef)
+            zz = zz.astype(np.float64)
+            size = np.abs(a2) * zz * zz + np.abs(a1 * zz) + np.abs(a0)
+            assert np.isfinite(got).all()
+            err = np.abs(got.astype(np.float64) - want)
+            assert (err <= 2.0 ** -18 * size).all(), \
+                float((err / size).max())
+
+
 def test_mxu_ignores_bf16():
     z, below, above = _case(2, 100, 5, 9)
     np.testing.assert_array_equal(_port(z, below, above, mxu=True, bf16=True),
