@@ -37,6 +37,24 @@ Phases, each fatal on failure:
                new rows after the first batch.  Then a small liar batch on
                the card and on the CPU, with the same uniforms, for each
                lowering: the rows must agree.
+6. device_mode ``fmin(mode="device")`` at full width with a torch twin of
+               the objective (each product rounded to float32 before it is
+               added, on both sides): (a) 16 trials after the 1,000-trial
+               history at ``sync_stride=1`` land exactly the hosted run's
+               trials; (b) fresh 256-trial runs at strides 1, 8 and None
+               land identical trials with 256, 32 and 1 fetches and one
+               capture each; (c) per EI lowering, a replayed 64-trial run
+               under ``torch.profiler`` runs the picked kernel once per
+               replay and the others never; (d) fresh 1,000-trial runs at
+               strides None, 8 and 1, and a 32-trial run: trials/s, and the device-busy share
+               and kernels per trial of a profiled replayed segment, beside
+               the hosted step's; (e) ``fmin_device`` lands (b)'s trials,
+               its ``patience`` stops the replays, and an objective that
+               calls ``.item()`` raises ``CaptureError``.  Each run's
+               counts are set to 0 just before it; each capture launches
+               the picked EI kernel once per warm-up step and records it
+               into its graph once, and the profiler counts one run per
+               replay in (c) and (d).
 
 Prints the card's name and power limit first, one ``{"kernels": [...]}``
 JSON line before the last, and as the last line
@@ -46,6 +64,7 @@ there is no CUDA device or the package is missing.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -60,7 +79,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import hyperopt_tpu_torch as ho  # noqa: E402
-from hyperopt_tpu_torch import base, history, hp, tpe  # noqa: E402
+from hyperopt_tpu_torch import base, device, history, hp, tpe  # noqa: E402
 from hyperopt_tpu_torch.ops import ei_scores as ei_mod  # noqa: E402
 from hyperopt_tpu_torch.space import (  # noqa: E402
     CATEGORICAL, LOGNORMAL, LOGUNIFORM, NORMAL, QLOGNORMAL, QNORMAL,
@@ -105,6 +124,19 @@ HBM_BYTES_PER_S = 3.35e12
 FLOP_PER_TERM = {"f32": 6, "bf16": 10, "mxu": 3}
 # Back-to-back calls inside one pair of CUDA events when a kernel is timed.
 LAUNCHES_PER_WINDOW = 10
+# device_mode: trials after the history (a), per stride run (b), per
+# lowering run (c), per throughput run (d), and in its profiled segment.
+DEVICE_MORE = 16
+DEVICE_STRIDE_RUN = 256
+DEVICE_LOWERING_RUN = 64
+DEVICE_THROUGHPUT_RUN = 1000
+DEVICE_PROFILED = 16
+# Kernel symbol of each lowering, as the profiler names it.
+KERNEL_SYMBOLS = {"f32": "ei_scores_kernel<false>",
+                  "bf16": "ei_scores_kernel<true>",
+                  "mxu": "ei_scores_mxu_kernel"}
+# The columns the objective sums: the flagship space's uniform ones.
+U_LABELS = [f"u{i}" for i in range(10)]
 
 
 def fail(msg):
@@ -154,6 +186,30 @@ def synthetic_trials(cs, n, seed, device):
 def objective(cfg):
     return float(sum(v * v for k, v in cfg.items()
                      if k.startswith("u") and isinstance(v, float)))
+
+
+def objective_f32(cfg):
+    """:func:`objective` in float32, one rounding per operation."""
+    acc = np.float32(0.0)
+    for k in U_LABELS:
+        v = np.float32(cfg[k])
+        acc = acc + v * v
+    return float(acc)
+
+
+def make_objective_torch():
+    """A new torch twin of :func:`objective_f32` for device mode (a new
+    function object: device mode keys its captured graphs by it).  Each
+    product is its own operation, rounded to float32 before it is added,
+    so no multiply-add is fused and the host twin's bits come out."""
+
+    def objective_torch(p):
+        acc = p[U_LABELS[0]] * p[U_LABELS[0]]
+        for k in U_LABELS[1:]:
+            acc = acc + p[k] * p[k]
+        return acc
+
+    return objective_torch
 
 
 def in_bounds(cs, row):
@@ -434,10 +490,12 @@ def phase_suggest_step(dev):
         bad = in_bounds(domain.cs, vals[0])
         if bad:
             fail(f"suggest_step: proposal outside the space: {bad}")
+    steady_ms = float(np.median(times[1:]))
     print(f"suggest_step: P={domain.cs.n_params} history={N_HISTORY} "
           f"n_cand={N_CAND} first_ms={times[0]:.2f} "
-          f"steady_ms_median={np.median(times[1:]):.2f}")
-    profile_steps(lambda s: algo(tid, domain, trials, seed=100 + s))
+          f"steady_ms_median={steady_ms:.2f}")
+    hosted = profile_steps(lambda s: algo(tid, domain, trials, seed=100 + s))
+    hosted["steady_ms"] = steady_ms
 
     # The same small step on the card and on the CPU, same uniforms.
     cs = compile_space(flagship_space(10))
@@ -458,34 +516,46 @@ def phase_suggest_step(dev):
         fail(f"suggest_step: card and CPU propose different rows:\n"
              f"{rows[1]}\n{rows[0]}")
     print("suggest_step: card and CPU rows agree on the small step")
+    return hosted
 
 
-def profile_steps(step, n=3, label="suggest_step"):
-    """Where a step's time goes: ``torch.profiler`` over ``n`` steps;
-    prints the device-busy share of the wall time, CUDA kernel launches
-    per step, and the kernels with the most device time."""
+def profiled(fn):
+    """Run ``fn()`` under ``torch.profiler`` and synchronize.  Returns
+    ``(wall_ms, [(kernel name, launches, device ms)])`` for every CUDA
+    kernel the profiler saw, replayed graphs' kernels included."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for s in range(n):
-            step(s)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
+    kernels = [(e.key, e.count,
+                (getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0)) / 1e3)
+               for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = [(getattr(e, "self_device_time_total", None)
-               or getattr(e, "self_cuda_time_total", 0)) / 1e3 for e in kernels]
-    busy = sum(dev_ms)
-    launches = sum(e.count for e in kernels)
+    return wall_ms, kernels
+
+
+def profile_steps(step, n=3, label="suggest_step"):
+    """Where a step's time goes: ``torch.profiler`` over ``n`` steps;
+    prints the device-busy share of the wall time, CUDA kernel launches
+    per step, and the kernels with the most device time.  Returns
+    ``{wall_ms, busy_ms, share, kernels}`` per step."""
+    wall_ms, kernels = profiled(lambda: [step(s) for s in range(n)])
+    busy = sum(ms for _, _, ms in kernels)
+    launches = sum(count for _, count, _ in kernels)
     print(f"{label} profile: wall_ms_per_step={wall_ms / n:.3f} "
           f"device_busy_ms_per_step={busy / n:.3f} "
           f"device_busy_share={busy / wall_ms:.3f} "
           f"cuda_kernels_per_step={launches / n:.1f}")
-    for ms, e in sorted(zip(dev_ms, kernels), key=lambda p: -p[0])[:8]:
+    for key, count, ms in sorted(kernels, key=lambda k: -k[2])[:8]:
         print(f"{label} profile: {ms / n:8.4f} ms/step "
-              f"{e.count / n:6.1f} launches/step  {e.key[:90]}")
+              f"{count / n:6.1f} launches/step  {key[:90]}")
+    return {"wall_ms": wall_ms / n, "busy_ms": busy / n,
+            "share": busy / wall_ms, "kernels": launches / n}
 
 
 def phase_fmin(dev):
@@ -612,6 +682,336 @@ def phase_liar_batch(dev):
     return launches
 
 
+def landed(trials, first):
+    """``(tid, misc.vals, loss)`` of the trials from index ``first`` on."""
+    return [(d["tid"], d["misc"]["vals"], d["result"]["loss"])
+            for d in list(trials)[first:]]
+
+
+def column_diffs(got, want):
+    """How many trials differ, per column (and in the loss)."""
+    diffs = {}
+    for (_, gv, gl), (_, wv, wl) in zip(got, want):
+        for k in sorted(set(gv) | set(wv)):
+            if gv.get(k) != wv.get(k):
+                diffs[k] = diffs.get(k, 0) + 1
+        if gl != wl:
+            diffs["loss"] = diffs.get("loss", 0) + 1
+    return diffs
+
+
+def check_counters(what, **want):
+    got = {k: getattr(device, k) for k in want}
+    if got != want:
+        fail(f"device_mode {what}: counters {got}, wanted {want}")
+
+
+def kernel_counts(kernels):
+    """Launches of each lowering's EI kernel in a profile."""
+    return {low: sum(c for key, c, _ in kernels if sym in key)
+            for low, sym in KERNEL_SYMBOLS.items()}
+
+
+def device_fmin(obj, space, algo, trials, max_evals, stride, dev, seed):
+    ho.fmin(obj, space, algo=algo, max_evals=max_evals, trials=trials,
+            rstate=np.random.default_rng(seed), device=dev, mode="device",
+            sync_stride=stride, show_progressbar=False)
+    return trials
+
+
+def load(seg, h, rows):
+    """Load the first ``rows`` of history ``h`` into a device-mode segment,
+    with room for ``DEVICE_PROFILED`` trials after them."""
+    seg.load(h["vals"][:rows], h["active"][:rows], h["loss"][:rows],
+             h["ok"][:rows], h["loss"][:rows], limit=rows + DEVICE_PROFILED)
+    torch.cuda.synchronize()
+
+
+def replay_ms(seg, h, rows):
+    """``DEVICE_PROFILED`` replays after ``rows`` history rows: the host's
+    enqueue time and the card's time (CUDA events), ms per trial."""
+    load(seg, h, rows)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    seg.run(range(DEVICE_PROFILED))
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    return (enqueue_ms / DEVICE_PROFILED,
+            start.elapsed_time(end) / DEVICE_PROFILED)
+
+
+def segment_of(cs, fn, n_cap):
+    """The cached device-mode segment of objective ``fn`` at bucket
+    ``n_cap`` (built by an ``fmin(mode="device")`` run)."""
+    return next(seg for f, seg in cs._device_runs.values()
+                if f is fn and seg.n_cap == n_cap)
+
+
+def phase_device_mode(dev, hosted):
+    """``fmin(mode="device")`` at full width, checks (a) to (e).  Returns
+    ``{lowering: (eager launches, launches recorded into graphs, replays
+    of graphs that hold the kernel)}`` over its runs."""
+    space = flagship_space()
+    cs = compile_space(space)
+    algo = partial(tpe.suggest, n_EI_candidates=N_CAND)
+    history0 = synthetic_trials(cs, N_HISTORY, 1, dev)
+    launches = dict.fromkeys(KERNELS, 0)
+    recorded = dict.fromkeys(KERNELS, 0)
+    replayed = dict.fromkeys(KERNELS, 0)
+
+    def copy_history():
+        return base.trials_from_docs(copy.deepcopy(list(history0)))
+
+    def counted(low, run):
+        """``run()`` with the device counters and the wrapper's counts set
+        to 0 just before it; adds what it launched, recorded into graphs
+        and replayed (graphs of lowering ``low``) to the phase's tallies."""
+        device.reset_counters()
+        ei_mod.reset_launches()
+        try:
+            return run()
+        finally:
+            for k in KERNELS:
+                launches[k] += ei_mod.ei_scores.launches_by[k]
+                recorded[k] += ei_mod.ei_scores.recorded_by[k]
+            replayed[low] += device.replays
+
+    def check_wrapper(what, low):
+        """Each capture launches the picked kernel once per warm-up step
+        and records it into the graph once; the other kernels not at
+        all."""
+        n = device.captures
+        want = ({k: n * device._WARMUP_STEPS * (k == low) for k in KERNELS},
+                {k: n * (k == low) for k in KERNELS})
+        got = (ei_mod.ei_scores.launches_by, ei_mod.ei_scores.recorded_by)
+        if got != want:
+            fail(f"device_mode {what}: wrapper launches and records {got}, "
+                 f"wanted {want} for {n} captures")
+
+    # (a) device against hosted, 16 trials after the 1,000-trial history,
+    # both in the 1,024 bucket.
+    n_total = N_HISTORY + DEVICE_MORE
+    th = copy_history()
+    t0 = time.perf_counter()
+    ho.fmin(objective_f32, space, algo=algo, max_evals=n_total, trials=th,
+            rstate=np.random.default_rng(4), device=dev,
+            show_progressbar=False)
+    hosted_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    td = counted("f32", lambda: device_fmin(
+        make_objective_torch(), space, algo, copy_history(), n_total, 1,
+        dev, 4))
+    device_s = time.perf_counter() - t0
+    check_counters("(a)", captures=1, replays=DEVICE_MORE, eager_steps=0,
+                   fetch_syncs=DEVICE_MORE, trials_landed=DEVICE_MORE)
+    check_wrapper("(a)", "f32")
+    got, want = landed(td, N_HISTORY), landed(th, N_HISTORY)
+    diffs = column_diffs(got, want)
+    if len(got) != DEVICE_MORE or len(want) != DEVICE_MORE or diffs:
+        fail(f"device_mode (a): device and hosted trials differ, trials "
+             f"per column: {diffs}")
+    print(f"device_mode (a): {DEVICE_MORE} trials after {N_HISTORY}, "
+          f"sync_stride=1: identical to the hosted run (misc.vals and "
+          f"losses); device {device_s:.3f} s (capture included), hosted "
+          f"{hosted_s:.3f} s; best loss {td.best_trial['result']['loss']:.6g}")
+
+    # (b) stride invariance: fresh runs, one capture each.
+    runs = {}
+    for stride in (1, 8, None):
+        t0 = time.perf_counter()
+        t = counted("f32", lambda: device_fmin(
+            make_objective_torch(), space, algo, ho.Trials(),
+            DEVICE_STRIDE_RUN, stride, dev, 5))
+        wall = time.perf_counter() - t0
+        fetches = -(-DEVICE_STRIDE_RUN // (stride or DEVICE_STRIDE_RUN))
+        check_counters(f"(b) stride {stride}", captures=1,
+                       replays=DEVICE_STRIDE_RUN, eager_steps=0,
+                       fetch_syncs=fetches, segments=fetches)
+        check_wrapper(f"(b) stride {stride}", "f32")
+        runs[stride] = landed(t, 0)
+        print(f"device_mode (b): stride {stride}: {DEVICE_STRIDE_RUN} "
+              f"trials, {fetches} fetches, 1 capture, {wall:.3f} s")
+    for stride in (8, None):
+        diffs = column_diffs(runs[stride], runs[1])
+        if diffs or len(runs[stride]) != DEVICE_STRIDE_RUN:
+            fail(f"device_mode (b): stride {stride} differs from stride 1: "
+                 f"{diffs}")
+    print("device_mode (b): strides 1, 8 and None land identical trials")
+
+    # (e) fmin_device: seed s lands fmin(mode="device")'s trials under
+    # rstate default_rng(s); patience stops the replays on a flat loss.
+    _, info = counted("f32", lambda: ho.fmin_device(
+        make_objective_torch(), space, DEVICE_STRIDE_RUN, seed=5,
+        n_EI_candidates=N_CAND, device=dev))
+    want_losses = np.asarray([loss for _, _, loss in runs[None]], np.float32)
+    if not np.array_equal(info["losses"], want_losses):
+        fail("device_mode (e): fmin_device(seed=5) and fmin(mode='device', "
+             "rstate=default_rng(5)) land different losses")
+    check_counters("(e)", captures=1, replays=DEVICE_STRIDE_RUN,
+                   fetch_syncs=1, eager_steps=0)
+    check_wrapper("(e)", "f32")
+    _, info = counted("f32", lambda: ho.fmin_device(
+        lambda p: p["u0"] * 0.0 + 1.0, space, DEVICE_THROUGHPUT_RUN,
+        seed=0, n_EI_candidates=N_CAND, patience=10, device=dev))
+    ran = info["n_trials"]
+    limit = ran + device._RUN_AHEAD + device._POLL_EVERY
+    if ran != 20 + 10 or not np.isinf(info["losses"][ran:]).all() \
+            or device.replays > limit or device.fetch_syncs != 1:
+        fail(f"device_mode (e): patience run: n_trials {ran} (wanted 30), "
+             f"{device.replays} replays (at most {limit}), "
+             f"{device.fetch_syncs} fetches")
+    check_wrapper("(e) patience", "f32")
+    patience_replays = device.replays
+    # An objective that reads a value back breaks the capture: it raises
+    # with the contract, and nothing runs on eagerly.
+    try:
+        counted("f32", lambda: device_fmin(
+            lambda p: p["u0"] * float(p["u0"].item()), space, algo,
+            ho.Trials(), 32, None, dev, 9))
+    except device.CaptureError as e:
+        if "no .item()" not in str(e):
+            fail(f"device_mode (e): CaptureError without the contract: {e}")
+    else:
+        fail("device_mode (e): an objective calling .item() was captured")
+    check_counters("(e) failed capture", captures=0, replays=0,
+                   eager_steps=0, trials_landed=0)
+    print(f"device_mode (e): fmin_device(seed=5) lands (b)'s trials; "
+          f"patience=10 on a flat loss stopped at {ran} trials after "
+          f"{patience_replays} replays (the stop count polled every "
+          f"{device._POLL_EVERY}, the host at most {device._RUN_AHEAD} "
+          f"ahead), one fetch; an objective calling .item() "
+          f"raises CaptureError naming the contract")
+
+    # (c) each lowering inside a replayed graph, counted by the profiler.
+    n_total = N_HISTORY + DEVICE_LOWERING_RUN
+    for low, (name, _, _, _, tpe_kw) in KERNELS.items():
+        algo_l = partial(tpe.suggest, n_EI_candidates=N_CAND, **tpe_kw)
+        obj = make_objective_torch()
+        counted(low, lambda: device_fmin(obj, space, algo_l, copy_history(),
+                                         n_total, None, dev, 6))
+        check_counters(f"(c) {low} capture run", captures=1,
+                       replays=DEVICE_LOWERING_RUN, eager_steps=0)
+        check_wrapper(f"(c) {low} capture run", low)
+        wall_ms, kernels = counted(low, lambda: profiled(
+            lambda: device_fmin(obj, space, algo_l, copy_history(), n_total,
+                                None, dev, 7)))
+        check_counters(f"(c) {low} replay run", captures=0,
+                       run_cache_hits=1, replays=DEVICE_LOWERING_RUN,
+                       eager_steps=0)
+        check_wrapper(f"(c) {low} replay run", low)
+        seen = kernel_counts(kernels)
+        want = {k: (DEVICE_LOWERING_RUN if k == low else 0) for k in seen}
+        if seen != want:
+            top = sorted(kernels, key=lambda k: -k[2])[:6]
+            fail(f"device_mode (c) {low}: the profiler counted {seen} EI "
+                 f"kernel runs in {DEVICE_LOWERING_RUN} replays, wanted "
+                 f"{want}; top kernels {[k[0][:60] for k in top]}")
+        ms = sum(m for key, _, m in kernels if KERNEL_SYMBOLS[low] in key)
+        print(f"device_mode (c) {low}: {name} ran {seen[low]} times in "
+              f"{DEVICE_LOWERING_RUN} replays (the others 0), "
+              f"{ms / max(seen[low], 1):.4f} ms per run by the profiler "
+              f"(bucket {tpe._bucket(n_total)}); the wrapper launched it "
+              f"{device._WARMUP_STEPS} times (warm-up) and recorded it once "
+              f"in the capture run, neither in the replay run")
+
+    # (d) throughput from an empty history: one graph for the four runs,
+    # captured in the first.
+    n = DEVICE_THROUGHPUT_RUN
+    obj = make_objective_torch()
+    runs = []
+    for stride in (None, 8, 1, None):
+        t0 = time.perf_counter()
+        t = counted("f32", lambda: device_fmin(obj, space, algo, ho.Trials(),
+                                               n, stride, dev, 8))
+        wall = time.perf_counter() - t0
+        fetches = -(-n // (stride or n))
+        check_counters(f"(d) stride {stride}", captures=int(not runs),
+                       replays=n, eager_steps=0, fetch_syncs=fetches)
+        check_wrapper(f"(d) stride {stride}", "f32")
+        note = " (capture included)" if not runs else (
+            " again" if len(runs) == 3 else "")
+        runs.append(t)
+        print(f"device_mode (d): stride {stride}{note}: {n} trials in "
+              f"{wall:.3f} s = {n / wall:.1f} trials/s, "
+              f"{wall / n * 1e3:.3f} ms per trial, best loss "
+              f"{t.best_trial['result']['loss']:.6g}")
+    for t in runs[1:]:
+        diffs = column_diffs(landed(t, 0), landed(runs[0], 0))
+        if diffs:
+            fail(f"device_mode (d): strides land different trials: {diffs}")
+    for d in runs[0]:
+        if not math.isfinite(d["result"]["loss"]):
+            fail(f"device_mode (d): trial {d['tid']} has a non-finite loss")
+    h = runs[0].history(cs)
+    for row, act in zip(h["vals"], h["active"]):
+        # The history holds 0 for inactive parameters.
+        bad = [lab for lab in in_bounds(cs, row)
+               if act[cs.by_label[lab].pid]]
+        if bad:
+            fail(f"device_mode (d): proposal outside the space: {bad}")
+    # The same objective at max_evals=32: a graph of the 32-row bucket.
+    t0 = time.perf_counter()
+    counted("f32", lambda: device_fmin(obj, space, algo, ho.Trials(), 32,
+                                       None, dev, 8))
+    wall = time.perf_counter() - t0
+    check_counters("(d) 32 trials", captures=1, replays=32, eager_steps=0)
+    check_wrapper("(d) 32 trials", "f32")
+    print(f"device_mode (d): stride None, 32 trials (bucket 32, capture "
+          f"included) in {wall:.3f} s")
+    seg = segment_of(cs, obj, tpe._bucket(n))
+    seg32 = segment_of(cs, obj, 32)
+    # Replayed segments of 16 trials, timed on the card: after 1,000 rows
+    # and after 16 in the 1,024 bucket, and after 16 in the 32 bucket
+    # (the fixed bucket's cost); then after 1,000 under the profiler.
+    for label, sg, rows in (("1,024 bucket, 1,000 rows", seg, n),
+                            ("1,024 bucket, 16 rows", seg, DEVICE_PROFILED),
+                            ("32 bucket, 16 rows", seg32, DEVICE_PROFILED)):
+        enqueue_ms, card_ms = counted("f32", lambda: replay_ms(sg, h, rows))
+        check_counters(f"(d) {label}", replays=DEVICE_PROFILED, captures=0)
+        print(f"device_mode (d): replayed segment of {DEVICE_PROFILED} "
+              f"trials, {label}: {card_ms:.3f} ms per trial on the card "
+              f"(CUDA events), host enqueue {enqueue_ms:.3f} ms per trial")
+    load(seg, h, n)
+    wall_ms, kernels = counted("f32", lambda: profiled(
+        lambda: seg.run(range(DEVICE_PROFILED))))
+    check_counters("(d) profiled segment", replays=DEVICE_PROFILED,
+                   captures=0)
+    seen = kernel_counts(kernels)
+    want = {k: (DEVICE_PROFILED if k == "f32" else 0) for k in seen}
+    if seen != want:
+        fail(f"device_mode (d): the profiler counted {seen} EI kernel runs "
+             f"in {DEVICE_PROFILED} replays at bucket {seg.n_cap}, wanted "
+             f"{want}")
+    busy = sum(m for _, _, m in kernels)
+    n_kernels = sum(c for _, c, _ in kernels)
+    k1_ms = sum(m for key, _, m in kernels
+                if KERNEL_SYMBOLS["f32"] in key) / DEVICE_PROFILED
+    print(f"device_mode (d): profiled replayed segment of {DEVICE_PROFILED} "
+          f"trials: wall_ms_per_trial={wall_ms / DEVICE_PROFILED:.3f} "
+          f"device_busy_ms_per_trial={busy / DEVICE_PROFILED:.3f} "
+          f"device_busy_share={busy / wall_ms:.3f} "
+          f"cuda_kernels_per_trial={n_kernels / DEVICE_PROFILED:.1f} "
+          f"K1_runs={seen['f32']} K1_ms_per_run={k1_ms:.4f}")
+    for key, c, m in sorted(kernels, key=lambda k: -k[2])[:8]:
+        print(f"device_mode (d) profile: {m / DEVICE_PROFILED:8.4f} ms/trial"
+              f" {c / DEVICE_PROFILED:6.1f} runs/trial  {key[:90]}")
+    for _, graph_seg in cs._device_runs.values():
+        print(f"device_mode: graph of bucket {graph_seg.n_cap} "
+              f"({graph_seg.kern.ei_impl}/{graph_seg.kern.ei_precision}): "
+              f"its pool holds {graph_seg.pool_bytes} bytes")
+    print(f"device_mode (d): hosted step in this run (suggest_step phase): "
+          f"steady {hosted['steady_ms']:.3f} ms, profiled "
+          f"{hosted['wall_ms']:.3f} ms wall, busy share "
+          f"{hosted['share']:.3f}, {hosted['kernels']:.1f} kernels per step")
+    print(f"device_mode: EI wrapper over the phase: eager launches "
+          f"{launches}, recorded into graphs {recorded}, graph replays "
+          f"{replayed}")
+    return {k: (launches[k], recorded[k], replayed[k]) for k in KERNELS}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -627,18 +1027,27 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     kernels = phase_ei_kernel(dev)
-    phase_suggest_step(dev)
+    hosted = phase_suggest_step(dev)
     fmin_launches = phase_fmin(dev)
     liar_launches = phase_liar_batch(dev)
+    device_launches = phase_device_mode(dev, hosted)
     print(f"total seconds {time.perf_counter() - t0:.1f}")
     rows = []
     for low, (name, source, replaces, _, _) in KERNELS.items():
-        # Launches on the main paths: the fmin phase (f32) and this
-        # lowering's liar_batch run, each counted from zero.
-        n = liar_launches[low] + (fmin_launches if low == "f32" else 0)
+        # Launches on the main paths, each counted from zero just before
+        # its run: the fmin phase (f32), this lowering's liar_batch run,
+        # and device_mode's eager warm-up steps.  A capture records the
+        # launch into its graph without running it (graph_recorded);
+        # graph_replays counts replays of graphs that hold the kernel, one
+        # kernel run each by the profiler's count in device_mode (c), (d).
+        dev_launches, dev_recorded, dev_replays = device_launches[low]
+        n = (liar_launches[low] + (fmin_launches if low == "f32" else 0)
+             + dev_launches)
         k = kernels[low]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": n,
+                     "graph_recorded": dev_recorded,
+                     "graph_replays": dev_replays,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None,

@@ -4,11 +4,13 @@ The same public surface for the hosted TPE run — ``fmin``, the ``hp.*``
 search-space DSL, ``tpe``/``rand`` suggest algorithms, ``Trials`` — with
 the numeric core in PyTorch and the EI scoring of the TPE step in CUDA
 kernels written for the H100 (``ops/ei_scores.py``), the history kept
-resident on the device (``history.py``).  Entry points run on CUDA unless
-the caller passes ``device="cpu"``.
+resident on the device (``history.py``).  Device mode (``device.py``:
+``fmin(mode="device")``, ``fmin_device``) runs the whole loop on the
+device as CUDA-graph replays of the TPE step.  Entry points run on CUDA
+unless the caller passes ``device="cpu"``.
 """
 
-from . import history, hp, rand, tpe  # noqa: F401
+from . import device, history, hp, rand, tpe  # noqa: F401
 from .base import (  # noqa: F401
     Ctrl,
     Domain,
@@ -28,6 +30,7 @@ from .base import (  # noqa: F401
     trials_from_docs,
 )
 from .exceptions import AllTrialsFailed, DuplicateLabel  # noqa: F401
+from .device import fmin_device  # noqa: F401
 from .fmin import (  # noqa: F401
     FMinIter,
     fmin,
@@ -39,8 +42,8 @@ from .space import CompiledSpace, compile_space  # noqa: F401
 from .utils.early_stop import no_progress_loss  # noqa: F401
 
 __all__ = [
-    "fmin", "FMinIter", "space_eval", "generate_trials_to_calculate",
-    "hp", "tpe", "rand", "scope", "history",
+    "fmin", "fmin_device", "FMinIter", "space_eval", "generate_trials_to_calculate",
+    "hp", "tpe", "rand", "scope", "history", "device",
     "Trials", "trials_from_docs", "Domain", "Ctrl",
     "CompiledSpace", "compile_space", "no_progress_loss",
     "STATUS_NEW", "STATUS_RUNNING", "STATUS_SUSPENDED", "STATUS_OK",

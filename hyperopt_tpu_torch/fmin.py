@@ -11,6 +11,10 @@ hyperparameters with ``functools.partial``), ``trials`` a
 
 ``device`` selects where the suggest algorithms run.  It defaults to CUDA
 and raises when there is none; pass ``device="cpu"`` to run on the CPU.
+
+``mode="device"`` runs the whole loop on the device instead, for a torch
+objective: one CUDA-graph replay per trial, the trials landed every
+``sync_stride`` of them (``device.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numbers
 import os
 import pickle
 import time
+from functools import partial
 
 import numpy as np
 
@@ -204,7 +209,8 @@ def fmin(fn, space, algo=None, max_evals=None,
          verbose=True, return_argmin=True,
          points_to_evaluate=None,
          show_progressbar=True, early_stop_fn=None,
-         trials_save_file="", device=None, max_queue_len=1):
+         trials_save_file="", device=None, max_queue_len=1, mode=None,
+         sync_stride=None):
     """Minimize ``fn`` over ``space`` using ``algo`` (default TPE).
 
     ``fn`` returns a float loss or a result dict with ``loss``/``status``;
@@ -218,7 +224,24 @@ def fmin(fn, space, algo=None, max_evals=None,
     is how many trials one call of the algo proposes (TPE: one batch of
     its constant-liar scan); 1 proposes one trial at a time.  Returns the
     best point (``return_argmin``) or the best loss.
+
+    ``mode="device"`` (``None`` and ``"host"`` are the hosted loop) runs
+    TPE and a torch objective on the device (``device.py``: the objective
+    takes ``{label: 0-d float32 tensor}`` and returns a 0-d tensor, with
+    torch ops only), one CUDA-graph replay per trial, and lands the trials
+    in ``trials`` every ``sync_stride`` trials (``None``: once); the
+    early-stop, timeout and loss-threshold checks run at those
+    boundaries.  ``algo`` is then only a carrier of TPE keywords
+    (``functools.partial(tpe.suggest, ...)``).  Host-loop options raise
+    there: ``points_to_evaluate``, ``pass_expr_memo_ctrl``,
+    ``catch_eval_exceptions``, ``trials_save_file``, ``max_queue_len >
+    1``, and algo keywords the device loop cannot honour (``resident``).
     """
+    if mode not in (None, "host", "device"):
+        raise ValueError(f"mode must be None, 'host' or 'device', got "
+                         f"{mode!r}")
+    if sync_stride is not None and mode != "device":
+        raise ValueError("sync_stride only applies to mode='device'")
     dev = resolve_device(device)
     if algo is None:
         from . import tpe
@@ -245,6 +268,33 @@ def fmin(fn, space, algo=None, max_evals=None,
                 raise ValueError("points_to_evaluate must be a list of dicts")
             trials = generate_trials_to_calculate(points_to_evaluate)
 
+    if mode == "device":
+        unsupported = [name for name, v in (
+            ("points_to_evaluate", points_to_evaluate),
+            ("pass_expr_memo_ctrl", pass_expr_memo_ctrl),
+            ("catch_eval_exceptions", catch_eval_exceptions or None),
+            ("trials_save_file", trials_save_file or None),
+            ("max_queue_len", max_queue_len if max_queue_len != 1 else None),
+        ) if v is not None]
+        if unsupported:
+            raise ValueError(
+                "mode='device' runs the whole loop on the device; "
+                "host-loop option(s) do not apply: "
+                + ", ".join(unsupported))
+        if max_evals is None:
+            raise ValueError("mode='device' requires max_evals (the "
+                             "captured loop needs a trial budget)")
+        algo_kw = _device_algo_kwargs(algo)
+        from .device import fmin_trials as _device_fmin_trials
+
+        _device_fmin_trials(
+            fn, space, max_evals=max_evals, trials=trials, rstate=rstate,
+            sync_stride=sync_stride, early_stop_fn=early_stop_fn,
+            timeout=timeout, loss_threshold=loss_threshold,
+            show_progressbar=show_progressbar and verbose, device=dev,
+            **algo_kw)
+        return _result(trials, return_argmin)
+
     domain = Domain(fn, space, pass_expr_memo_ctrl=pass_expr_memo_ctrl)
     domain.cs.device = dev
 
@@ -258,7 +308,11 @@ def fmin(fn, space, algo=None, max_evals=None,
     rval.catch_eval_exceptions = catch_eval_exceptions
     rval.exhaust()
     rval._save_trials()
+    return _result(trials, return_argmin)
 
+
+def _result(trials, return_argmin):
+    """``fmin``'s return value: the best point, or the best loss."""
     if return_argmin:
         if len(trials.trials) == 0:
             raise AllTrialsFailed(
@@ -268,6 +322,47 @@ def fmin(fn, space, algo=None, max_evals=None,
     if len(trials) > 0:
         return trials.best_trial["result"]["loss"]
     return None
+
+
+#: TPE keywords the device loop captures: the JAX package's, without
+#: ``multivariate`` (not ported), with the port's EI lowering arguments
+#: (the JAX device loop reads those from its environment toggles).
+_DEVICE_ALGO_KEYS = frozenset((
+    "gamma", "prior_weight", "n_startup_jobs", "n_EI_candidates",
+    "linear_forgetting", "split", "cat_prior", "ei_impl", "ei_precision",
+    "ei_topm"))
+
+
+def _device_algo_kwargs(algo):
+    """The TPE keywords that ``algo`` carries, for ``mode='device'``.
+
+    The device loop does not call ``algo``; ``functools.partial(
+    tpe.suggest, gamma=...)`` unwraps to ``{'gamma': ...}``.  Anything but
+    ``tpe.suggest``, or a keyword the captured step cannot honour, raises:
+    running another algorithm than the one named would be worse than
+    failing."""
+    from . import tpe as _tpe
+
+    kw = {}
+    fn_ = algo
+    while isinstance(fn_, partial):
+        if fn_.args:
+            raise ValueError("mode='device': partial-bound positional algo "
+                             "arguments are not supported")
+        for k, v in (fn_.keywords or {}).items():
+            kw.setdefault(k, v)
+        fn_ = fn_.func
+    if fn_ is not _tpe.suggest:
+        name = getattr(fn_, "__name__", repr(fn_))
+        raise ValueError(
+            f"mode='device' supports TPE only (tpe.suggest, optionally "
+            f"functools.partial-bound); got {name}. Run mode=None for "
+            f"other algorithms.")
+    bad = sorted(set(kw) - _DEVICE_ALGO_KEYS)
+    if bad:
+        raise ValueError(f"mode='device' cannot honor algo keyword(s) {bad}; "
+                         f"supported: {sorted(_DEVICE_ALGO_KEYS)}")
+    return kw
 
 
 def validate_timeout(timeout):

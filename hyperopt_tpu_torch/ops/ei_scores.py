@@ -168,7 +168,13 @@ def ei_scores(z, logw_b, mu_b, sg_b, logw_a, mu_a, sg_a, mxu=False,
     pick the lowering (:func:`lowering`).  A CUDA ``z`` launches that
     lowering's kernel (and adds one to ``ei_scores.launches`` and to
     ``ei_scores.launches_by[lowering]``) or raises; a CPU ``z`` goes to
-    :func:`ei_scores_reference`."""
+    :func:`ei_scores_reference`.
+
+    Inside a CUDA-graph capture (device mode, ``device.py``) the call
+    records the launch into the graph without running it: it adds one to
+    ``ei_scores.recorded_by[lowering]`` instead.  Every replay of the
+    graph then runs the kernel without passing through here, so neither
+    count sees those runs; a profiler does."""
     mixtures = (logw_b, mu_b, sg_b, logw_a, mu_a, sg_a)
     _check(z, mixtures)
     if z.device.type == "cpu":
@@ -193,6 +199,7 @@ def ei_scores(z, logw_b, mu_b, sg_b, logw_a, mu_a, sg_a, mxu=False,
         build()
     out = torch.empty_like(z)
     with torch.cuda.device(z.device):
+        recording = torch.cuda.is_current_stream_capturing()
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = getattr(_libs[lib_name], entry)(
             z.data_ptr(), logw_b.data_ptr(), mu_b.data_ptr(),
@@ -202,19 +209,25 @@ def ei_scores(z, logw_b, mu_b, sg_b, logw_a, mu_a, sg_a, mxu=False,
     if err != 0:
         raise RuntimeError(f"ei_scores {low} kernel launch failed: CUDA "
                            f"error {err}")
-    ei_scores.launches += 1
-    ei_scores.launches_by[low] += 1
+    if recording:
+        ei_scores.recorded_by[low] += 1
+    else:
+        ei_scores.launches += 1
+        ei_scores.launches_by[low] += 1
     return out
 
 
 ei_scores.launches = 0
 ei_scores.launches_by = dict.fromkeys(LOWERINGS, 0)
+ei_scores.recorded_by = dict.fromkeys(LOWERINGS, 0)
 
 
 def reset_launches():
-    """Set the total and per-lowering launch counts to 0."""
+    """Set the total and per-lowering launch counts, and the counts of
+    launches recorded into graphs, to 0."""
     ei_scores.launches = 0
     ei_scores.launches_by = dict.fromkeys(LOWERINGS, 0)
+    ei_scores.recorded_by = dict.fromkeys(LOWERINGS, 0)
 
 
 def _terms_f32(logw, mu, sg):

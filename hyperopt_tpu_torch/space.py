@@ -27,6 +27,7 @@ import math
 import operator as _operator
 from collections import OrderedDict
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Any, Optional
 
 import numpy as np
@@ -475,7 +476,7 @@ class CompiledSpace:
 
     def _build_groups(self):
         """Partition params into batched sampling groups; precompute constants
-        (numpy, moved to the sampling device per call)."""
+        (numpy, moved to each sampling device once by :meth:`_consts`)."""
         uf, nf, cat, wide = [], [], [], []
         for p in self.params:
             if p.kind == CATEGORICAL or (p.kind == RANDINT and
@@ -536,6 +537,21 @@ class CompiledSpace:
 
         self._cond_by_pid = [p.conditions for p in self.params]
 
+    _CONSTS = ("uf_a", "uf_b", "uf_log", "uf_q", "uf_clip_lo", "uf_clip_hi",
+               "nf_mu", "nf_sigma", "nf_log", "nf_q", "nf_clip", "cat_cdf",
+               "cat_last", "cat_offset", "wide_low", "wide_high", "inv_perm")
+
+    def _consts(self, dev) -> SimpleNamespace:
+        """The sampler's constants as tensors on ``dev``, uploaded once per
+        device: a call of :meth:`sample` copies nothing from the host."""
+        cache = self.__dict__.setdefault("_dev_consts", {})
+        key = str(dev)
+        if key not in cache:
+            cache[key] = SimpleNamespace(**{
+                k: torch.as_tensor(getattr(self, "_" + k), device=dev)
+                for k in self._CONSTS})
+        return cache[key]
+
     def noise_shapes(self, n: int) -> dict:
         """Shapes of the uniforms :meth:`sample` consumes for ``n`` rows."""
         return {"uf": (n, len(self._uf)), "nf": (n, len(self._nf)),
@@ -564,40 +580,38 @@ class CompiledSpace:
             return torch.rand(shape, generator=generator, device=dev,
                               dtype=torch.float32)
 
-        def t(a):
-            return torch.as_tensor(a, device=dev)
-
+        t = self._consts(dev)
         cols = []
         if self._uf:
             u = draw("uf")
-            a, b = t(self._uf_a), t(self._uf_b)
+            a, b = t.uf_a, t.uf_b
             x = a + (b - a) * u
-            x = torch.where(t(self._uf_log), torch.exp(x), x)
-            q = t(self._uf_q)
+            x = torch.where(t.uf_log, torch.exp(x), x)
+            q = t.uf_q
             x = torch.where(q > 0, torch.round(x / torch.where(q > 0, q, 1.0))
                             * q, x)
-            cols.append(torch.minimum(torch.maximum(x, t(self._uf_clip_lo)),
-                                      t(self._uf_clip_hi)))
+            cols.append(torch.minimum(torch.maximum(x, t.uf_clip_lo),
+                                      t.uf_clip_hi))
         if self._nf:
             u = draw("nf").clamp(_U_TINY, _U_MAX)
-            x = t(self._nf_mu) + t(self._nf_sigma) * torch.special.ndtri(u)
-            x = torch.where(t(self._nf_log), torch.exp(x), x)
-            q = t(self._nf_q)
+            x = t.nf_mu + t.nf_sigma * torch.special.ndtri(u)
+            x = torch.where(t.nf_log, torch.exp(x), x)
+            q = t.nf_q
             x = torch.where(q > 0, torch.round(x / torch.where(q > 0, q, 1.0))
                             * q, x)
-            clip = t(self._nf_clip)
+            clip = t.nf_clip
             cols.append(torch.minimum(torch.maximum(x, -clip), clip))
         if self._cat:
             u = draw("cat").T.contiguous()                   # [D, n]
-            idx = icdf_pick(u, t(self._cat_cdf), t(self._cat_last)[:, None])
-            cols.append(t(self._cat_offset) + idx.T.to(torch.float32))
+            idx = icdf_pick(u, t.cat_cdf, t.cat_last[:, None])
+            cols.append(t.cat_offset + idx.T.to(torch.float32))
         if self._wide:
             u = draw("wide")
-            low, high = t(self._wide_low), t(self._wide_high)
+            low, high = t.wide_low, t.wide_high
             w = torch.floor(low + (high - low) * u)
             cols.append(torch.minimum(w, high - 1))
         if cols:
-            vals = torch.cat(cols, dim=1)[:, t(self._inv_perm)]
+            vals = torch.cat(cols, dim=1)[:, t.inv_perm]
         else:
             vals = torch.zeros((n, 0), dtype=torch.float32, device=dev)
         return vals, self.active_mask(vals)
@@ -624,10 +638,12 @@ class CompiledSpace:
         return out
 
     def __getstate__(self):
-        # The TPE kernel cache (tpe.get_kernel) holds device tensors; it is
+        # The TPE kernel cache (tpe.get_kernel), the sampler's constants
+        # and device mode's captured runs hold device tensors; they are
         # rebuilt on demand and not pickled.
         state = self.__dict__.copy()
-        state.pop("_tpe_kernels", None)
+        for k in ("_tpe_kernels", "_dev_consts", "_device_runs"):
+            state.pop(k, None)
         return state
 
     # -- host-side decoding -------------------------------------------------

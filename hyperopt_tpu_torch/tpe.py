@@ -184,13 +184,20 @@ def _check_ei_args(ei_impl, ei_precision, ei_topm):
         raise ValueError(f"ei_topm must be an int >= 0, got {ei_topm!r}")
 
 
-def _insert_row(hv, ha, hl, hok, idx, row, act, loss):
-    """Write one trial into row ``idx`` of the padded history tensors, in
-    place (the liar scan's fantasy rows)."""
-    hv[idx] = row
-    ha[idx] = act
-    hl[idx] = loss
-    hok[idx] = True
+def _insert_row(hv, ha, hl, hok, idx, row, act, loss, ok=True):
+    """Write one trial into row ``idx`` (an int64 ``[1]`` tensor on the
+    history's device) of the padded history tensors, in place: the liar
+    scan's fantasy rows, device mode's landed trials.  ``loss`` is a 0-d
+    float32 tensor; ``ok`` True or a 0-d bool tensor.  The row index is a
+    tensor so that a replayed CUDA graph writes where the index points
+    now, not where it pointed at capture."""
+    hv.index_copy_(0, idx, row[None])
+    ha.index_copy_(0, idx, act[None])
+    hl.index_copy_(0, idx, loss.reshape(1))
+    if ok is True:
+        hok.index_fill_(0, idx, True)
+    else:
+        hok.index_copy_(0, idx, ok.reshape(1))
     return hv, ha, hl, hok
 
 
@@ -280,7 +287,9 @@ class _TpeKernel:
         Ties break by trial index; NaN losses rank with the +inf padding."""
         n_ok = torch.sum(ok)
         n_f = n_ok.to(torch.float32)
-        g = torch.tensor(gamma, dtype=torch.float32, device=loss.device)
+        # gamma rounded to float32, as a scalar operand: no host→device
+        # copy per call.
+        g = float(np.float32(gamma))
         if self.split == "sqrt":
             n_below = torch.ceil(g * torch.sqrt(n_f))
         else:
@@ -451,7 +460,8 @@ class _TpeKernel:
         below, above = self._split(loss, ok, gamma)
         row = torch.zeros((self.cs.n_params,), dtype=torch.float32,
                           device=self.device)
-        ei_best = torch.tensor(-math.inf, device=self.device)
+        ei_best = torch.full((), -math.inf, dtype=torch.float32,
+                             device=self.device)
         ei_ties = torch.zeros((), dtype=torch.int32, device=self.device)
         cols = []
         for g, gt, (uc, u) in zip(self.groups, self._gt, noise["cont"]):
@@ -493,11 +503,13 @@ class _TpeKernel:
         n_ok = torch.clamp_min(torch.sum(ok), 1).to(torch.float32)
         lie = torch.sum(torch.where(ok, loss, torch.zeros_like(loss))) / n_ok
         hist = [t.clone() for t in (vals, active, loss, ok)]
+        at = torch.full((1,), n_rows, dtype=torch.int64, device=loss.device)
         rows, acts = [], []
         for i in range(m):
             row, act = self(*hist, gamma, prior_weight, generator=generator,
                             noise=None if noises is None else noises[i])
-            _insert_row(*hist, n_rows + i, row, act, lie)
+            _insert_row(*hist, at, row, act, lie)
+            at += 1
             rows.append(row)
             acts.append(act)
         return torch.stack(rows), torch.stack(acts)

@@ -39,6 +39,7 @@ def test_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import hyperopt_tpu_torch, hyperopt_tpu_torch.convert, chip_smoke\n"
         "import hyperopt_tpu_torch.ops.ei_scores, hyperopt_tpu_torch.history\n"
+        "import hyperopt_tpu_torch.device\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hyperopt_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
