@@ -55,6 +55,25 @@ Phases, each fatal on failure:
                the picked EI kernel once per warm-up step and records it
                into its graph once, and the profiler counts one run per
                replay in (c) and (d).
+7. fleet       the fleet at the same width: (a) per EI lowering,
+               ``fmin_fleet`` over 4 lanes (64 trials, stride 16) lands in
+               each lane the trials of the solo ``fmin(mode="device")`` run
+               under that lane's seed, bit for bit, and
+               ``fmin_device(n_runs=4)`` run j equals ``fmin_device(seed=
+               s + j)``; (b) ``fmin_fleet`` at 1, 8 and 64 lanes, 1,000
+               trials from empty at stride None, twice each: trials/s
+               summed over lanes, card and host ms per replay of a
+               replayed segment, pool bytes, and lanes that agree across
+               fleet sizes; (c) per lowering and lane count, a profiled
+               replayed segment: busy share, kernels per replay, the
+               picked EI kernel once per replay and the others never; and
+               the kernels through their wrapper at 31·L x 10,000 (L = 8,
+               64) against their bound; (d) per lowering, a
+               ``CohortScheduler`` serves 8 experiments in one dispatch
+               with one launch of the picked kernel, each row equal to the
+               experiment's solo ``tpe.suggest``.
+8. card_tests  ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
+               and every collected test passed.
 
 Prints the card's name and power limit first, one ``{"kernels": [...]}``
 JSON line before the last, and as the last line
@@ -72,6 +91,7 @@ import subprocess
 import sys
 import time
 from functools import partial
+from xml.etree import ElementTree
 
 import numpy as np
 import torch
@@ -79,7 +99,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import hyperopt_tpu_torch as ho  # noqa: E402
-from hyperopt_tpu_torch import base, device, history, hp, tpe  # noqa: E402
+from hyperopt_tpu_torch import (  # noqa: E402
+    base, device, fleet, history, hp, tpe)
 from hyperopt_tpu_torch.ops import ei_scores as ei_mod  # noqa: E402
 from hyperopt_tpu_torch.space import (  # noqa: E402
     CATEGORICAL, LOGNORMAL, LOGUNIFORM, NORMAL, QLOGNORMAL, QNORMAL,
@@ -131,6 +152,16 @@ DEVICE_STRIDE_RUN = 256
 DEVICE_LOWERING_RUN = 64
 DEVICE_THROUGHPUT_RUN = 1000
 DEVICE_PROFILED = 16
+# fleet: lanes and trials per lane of each parity run (a), its stride; lane
+# counts and trials per lane of the throughput runs (b); lane counts of the
+# wrapper-timed kernels (c); experiments in the hosted cohort (d).
+FLEET_LANES = 4
+FLEET_PARITY_RUN = 64
+FLEET_STRIDE = 16
+FLEET_THROUGHPUT_LANES = (1, 8, 64)
+FLEET_THROUGHPUT_RUN = 1000
+FLEET_KERNEL_LANES = (8, 64)
+COHORT = 8
 # Kernel symbol of each lowering, as the profiler names it.
 KERNEL_SYMBOLS = {"f32": "ei_scores_kernel<false>",
                   "bf16": "ei_scores_kernel<true>",
@@ -700,6 +731,47 @@ def column_diffs(got, want):
     return diffs
 
 
+class Tally:
+    """A phase's EI kernel counts per lowering, summed over its runs: eager
+    launches, launches recorded into graphs, and replays of graphs that
+    hold the kernel (one kernel run per replay, whatever the lanes)."""
+
+    def __init__(self):
+        self.launches = dict.fromkeys(KERNELS, 0)
+        self.recorded = dict.fromkeys(KERNELS, 0)
+        self.replayed = dict.fromkeys(KERNELS, 0)
+
+    def counted(self, low, run):
+        """``run()`` with the device counters and the wrapper's counts set
+        to 0 just before it; adds what it launched, recorded into graphs
+        and replayed (graphs of lowering ``low``) to the tallies."""
+        device.reset_counters()
+        ei_mod.reset_launches()
+        try:
+            return run()
+        finally:
+            for k in KERNELS:
+                self.launches[k] += ei_mod.ei_scores.launches_by[k]
+                self.recorded[k] += ei_mod.ei_scores.recorded_by[k]
+            self.replayed[low] += device.replays
+
+    def rows(self):
+        return {k: (self.launches[k], self.recorded[k], self.replayed[k])
+                for k in KERNELS}
+
+
+def check_captures(what, low):
+    """Each capture launches the picked kernel once per warm-up step and
+    records it into the graph once; the other kernels not at all."""
+    n = device.captures
+    want = ({k: n * device._WARMUP_STEPS * (k == low) for k in KERNELS},
+            {k: n * (k == low) for k in KERNELS})
+    got = (ei_mod.ei_scores.launches_by, ei_mod.ei_scores.recorded_by)
+    if got != want:
+        fail(f"{what}: wrapper launches and records {got}, wanted {want} "
+             f"for {n} captures")
+
+
 def check_counters(what, **want):
     got = {k: getattr(device, k) for k in want}
     if got != want:
@@ -727,15 +799,21 @@ def load(seg, h, rows):
     torch.cuda.synchronize()
 
 
+def replay_seeds(seg, n=DEVICE_PROFILED):
+    """Seeds for ``n`` replays of a segment: ``[n, lanes]``."""
+    return np.arange(n * seg.n_lanes).reshape(n, seg.n_lanes)
+
+
 def replay_ms(seg, h, rows):
-    """``DEVICE_PROFILED`` replays after ``rows`` history rows: the host's
-    enqueue time and the card's time (CUDA events), ms per trial."""
+    """``DEVICE_PROFILED`` replays after ``rows`` history rows (in every
+    lane): the host's enqueue time and the card's time (CUDA events), ms
+    per replay."""
     load(seg, h, rows)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     t0 = time.perf_counter()
-    seg.run(range(DEVICE_PROFILED))
+    seg.run(replay_seeds(seg))
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     end.synchronize()
@@ -743,11 +821,35 @@ def replay_ms(seg, h, rows):
             start.elapsed_time(end) / DEVICE_PROFILED)
 
 
-def segment_of(cs, fn, n_cap):
+def host_split_ms(seg, h, rows):
+    """The host's own time for one replay, with the card idle when it
+    starts (``replay_ms``'s enqueue time also holds the waits of a full
+    launch queue): reseeding every generator of the segment (``2·lanes``
+    ``manual_seed`` calls), then ``graph.replay()`` (with the
+    generator-state fills of its prologue); ms, averaged over
+    ``DEVICE_PROFILED`` replays."""
+    load(seg, h, rows)
+    seed_s = replay_s = 0.0
+    for t in range(DEVICE_PROFILED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in seg.gens:
+            g.manual_seed(t)
+        t1 = time.perf_counter()
+        seg.graph.replay()
+        t2 = time.perf_counter()
+        seed_s += t1 - t0
+        replay_s += t2 - t1
+    torch.cuda.synchronize()
+    return (seed_s * 1e3 / DEVICE_PROFILED, replay_s * 1e3 / DEVICE_PROFILED)
+
+
+def segment_of(cs, fn, n_cap, lanes=1):
     """The cached device-mode segment of objective ``fn`` at bucket
-    ``n_cap`` (built by an ``fmin(mode="device")`` run)."""
+    ``n_cap`` with ``lanes`` lanes (built by an ``fmin(mode="device")``,
+    ``fmin_device`` or ``fmin_fleet`` run)."""
     return next(seg for f, seg in cs._device_runs.values()
-                if f is fn and seg.n_cap == n_cap)
+                if f is fn and seg.n_cap == n_cap and seg.n_lanes == lanes)
 
 
 def phase_device_mode(dev, hosted):
@@ -758,38 +860,14 @@ def phase_device_mode(dev, hosted):
     cs = compile_space(space)
     algo = partial(tpe.suggest, n_EI_candidates=N_CAND)
     history0 = synthetic_trials(cs, N_HISTORY, 1, dev)
-    launches = dict.fromkeys(KERNELS, 0)
-    recorded = dict.fromkeys(KERNELS, 0)
-    replayed = dict.fromkeys(KERNELS, 0)
+    tally = Tally()
+    counted = tally.counted
 
     def copy_history():
         return base.trials_from_docs(copy.deepcopy(list(history0)))
 
-    def counted(low, run):
-        """``run()`` with the device counters and the wrapper's counts set
-        to 0 just before it; adds what it launched, recorded into graphs
-        and replayed (graphs of lowering ``low``) to the phase's tallies."""
-        device.reset_counters()
-        ei_mod.reset_launches()
-        try:
-            return run()
-        finally:
-            for k in KERNELS:
-                launches[k] += ei_mod.ei_scores.launches_by[k]
-                recorded[k] += ei_mod.ei_scores.recorded_by[k]
-            replayed[low] += device.replays
-
     def check_wrapper(what, low):
-        """Each capture launches the picked kernel once per warm-up step
-        and records it into the graph once; the other kernels not at
-        all."""
-        n = device.captures
-        want = ({k: n * device._WARMUP_STEPS * (k == low) for k in KERNELS},
-                {k: n * (k == low) for k in KERNELS})
-        got = (ei_mod.ei_scores.launches_by, ei_mod.ei_scores.recorded_by)
-        if got != want:
-            fail(f"device_mode {what}: wrapper launches and records {got}, "
-                 f"wanted {want} for {n} captures")
+        check_captures(f"device_mode {what}", low)
 
     # (a) device against hosted, 16 trials after the 1,000-trial history,
     # both in the 1,024 bucket.
@@ -922,6 +1000,7 @@ def phase_device_mode(dev, hosted):
     n = DEVICE_THROUGHPUT_RUN
     obj = make_objective_torch()
     runs = []
+    rates = []
     for stride in (None, 8, 1, None):
         t0 = time.perf_counter()
         t = counted("f32", lambda: device_fmin(obj, space, algo, ho.Trials(),
@@ -934,6 +1013,7 @@ def phase_device_mode(dev, hosted):
         note = " (capture included)" if not runs else (
             " again" if len(runs) == 3 else "")
         runs.append(t)
+        rates.append((stride, n / wall))
         print(f"device_mode (d): stride {stride}{note}: {n} trials in "
               f"{wall:.3f} s = {n / wall:.1f} trials/s, "
               f"{wall / n * 1e3:.3f} ms per trial, best loss "
@@ -976,7 +1056,7 @@ def phase_device_mode(dev, hosted):
               f"(CUDA events), host enqueue {enqueue_ms:.3f} ms per trial")
     load(seg, h, n)
     wall_ms, kernels = counted("f32", lambda: profiled(
-        lambda: seg.run(range(DEVICE_PROFILED))))
+        lambda: seg.run(replay_seeds(seg))))
     check_counters("(d) profiled segment", replays=DEVICE_PROFILED,
                    captures=0)
     seen = kernel_counts(kernels)
@@ -1007,9 +1087,243 @@ def phase_device_mode(dev, hosted):
           f"{hosted['wall_ms']:.3f} ms wall, busy share "
           f"{hosted['share']:.3f}, {hosted['kernels']:.1f} kernels per step")
     print(f"device_mode: EI wrapper over the phase: eager launches "
-          f"{launches}, recorded into graphs {recorded}, graph replays "
-          f"{replayed}")
-    return {k: (launches[k], recorded[k], replayed[k]) for k in KERNELS}
+          f"{tally.launches}, recorded into graphs {tally.recorded}, graph "
+          f"replays {tally.replayed}")
+    return tally.rows(), rates
+
+
+def lane_infos_equal(a, b):
+    """Whether two ``fmin_fleet`` lane infos hold the same trials."""
+    return all(np.array_equal(a[k], b[k]) for k in ("losses", "vals",
+                                                     "active"))
+
+
+def phase_fleet(dev, solo_rates):
+    """The fleet at full width, checks (a) to (d).  Returns ``(counts,
+    kernel_times)``: ``{lowering: (eager launches, launches recorded into
+    graphs, replays of graphs that hold the kernel)}`` over its runs, and
+    ``{lowering: {lanes: (ms, bound_ms)}}`` of the wrapper-timed kernels at
+    ``31·lanes`` columns."""
+    space = flagship_space()
+    cs = compile_space(space)
+    tally = Tally()
+    counted = tally.counted
+
+    # (a) lane parity, per lowering: fmin_fleet against solo
+    # fmin(mode="device") runs and fmin_device(n_runs) against solo
+    # fmin_device runs (bucket 64).
+    n, lanes, stride = FLEET_PARITY_RUN, FLEET_LANES, FLEET_STRIDE
+    for low, (name, _, _, _, tpe_kw) in KERNELS.items():
+        kw = dict(n_EI_candidates=N_CAND, **tpe_kw)
+        obj = make_objective_torch()
+        tl = [ho.Trials() for _ in range(lanes)]
+        infos = counted(low, lambda: fleet.fmin_fleet(
+            obj, cs, lanes, n, seed=21, sync_stride=stride, trials_list=tl,
+            device=dev, **kw))
+        check_counters(f"(a) {low} fmin_fleet", captures=1, replays=n,
+                       eager_steps=0, fetch_syncs=n // stride,
+                       trials_landed=lanes * n)
+        check_captures(f"fleet (a) {low} fmin_fleet", low)
+        for j in range(lanes):
+            t = counted(low, lambda: device_fmin(
+                obj, space, partial(tpe.suggest, **kw), ho.Trials(), n,
+                stride, dev, 21 + j))
+            if device.eager_steps:
+                fail(f"fleet (a) {low}: a solo run stepped eagerly")
+            diffs = column_diffs(landed(tl[j], 0), landed(t, 0))
+            solo_losses = np.asarray([d["result"]["loss"] for d in t],
+                                     np.float32)
+            if diffs or len(t) != n or len(tl[j]) != n \
+                    or not np.array_equal(infos[j]["losses"], solo_losses):
+                fail(f"fleet (a) {low}: lane {j} differs from the solo "
+                     f"device run under seed {21 + j}: {diffs}")
+        _, info = counted(low, lambda: ho.fmin_device(
+            obj, cs, n, seed=31, n_runs=lanes, device=dev, **kw))
+        check_counters(f"(a) {low} fmin_device(n_runs)", captures=0,
+                       run_cache_hits=1, replays=n, eager_steps=0,
+                       fetch_syncs=1)
+        for j in range(lanes):
+            _, solo = counted(low, lambda: ho.fmin_device(
+                obj, cs, n, seed=31 + j, device=dev, **kw))
+            for k in ("losses", "vals", "active"):
+                if not np.array_equal(info[k][j], solo[k]):
+                    fail(f"fleet (a) {low}: fmin_device(n_runs={lanes}) run "
+                         f"{j} differs from fmin_device(seed={31 + j}) in "
+                         f"{k}")
+        print(f"fleet (a) {low}: fmin_fleet({lanes} lanes, {n} trials, "
+              f"sync_stride={stride}) lands each lane's misc.vals and losses "
+              f"bit for bit as the solo fmin(mode='device') run under seed "
+              f"21 + j, one capture, {n // stride} fetches; "
+              f"fmin_device(n_runs={lanes}) run j equals fmin_device(seed="
+              f"31 + j); best losses "
+              f"{[round(i['best_loss'], 4) for i in infos]}")
+
+    # (b) throughput from empty histories, stride None, and (c) the
+    # kernels inside the lane graphs: every lowering's kernel once per
+    # replay at every lane count, by the profiler.
+    h = synthetic_trials(cs, N_HISTORY, 1, dev).history(cs)
+    obj = make_objective_torch()
+    n = FLEET_THROUGHPUT_RUN
+    first = {}
+    for lanes in FLEET_THROUGHPUT_LANES:
+        rates = []
+        for rep in range(2):
+            t0 = time.perf_counter()
+            infos = counted("f32", lambda: fleet.fmin_fleet(
+                obj, cs, lanes, n, seed=40, device=dev,
+                n_EI_candidates=N_CAND))
+            wall = time.perf_counter() - t0
+            check_counters(f"(b) {lanes} lanes", captures=int(rep == 0),
+                           replays=n, eager_steps=0, fetch_syncs=1)
+            check_captures(f"fleet (b) {lanes} lanes", "f32")
+            rates.append(lanes * n / wall)
+        for j, info in enumerate(infos):
+            if not np.isfinite(info["losses"]).all():
+                fail(f"fleet (b): {lanes} lanes: lane {j} has a non-finite "
+                     f"loss")
+        for j, info in first.items():
+            if j < lanes and not lane_infos_equal(info, infos[j]):
+                fail(f"fleet (b): lane {j} of {lanes} lanes differs from "
+                     f"lane {j} of a smaller fleet")
+        first.update({j: infos[j] for j in (0, lanes - 1)})
+        seg = segment_of(cs, obj, tpe._bucket(n), lanes)
+        enqueue_ms, card_ms = counted("f32", lambda: replay_ms(seg, h, n))
+        seed_ms, bare_ms = host_split_ms(seg, h, n)
+        print(f"fleet (b): {lanes} lanes x {n} trials, stride None: "
+              f"{rates[0]:.1f} trials/s summed over lanes (capture "
+              f"included), {rates[1]:.1f} again; replayed segment of "
+              f"{DEVICE_PROFILED} after {n} rows: {card_ms:.3f} ms per "
+              f"replay on the card (CUDA events), host enqueue "
+              f"{enqueue_ms:.3f} ms per replay; one replay alone on the "
+              f"host: reseeding {seed_ms:.3f} ms, graph.replay() "
+              f"{bare_ms:.3f} ms; pool {seg.pool_bytes} bytes")
+    print(f"fleet (b): the solo device-mode runs of this process "
+          f"(device_mode (d), 1,000 trials): "
+          + ", ".join(f"stride {st} {r:.1f} trials/s" for st, r in solo_rates))
+    for low, (name, _, _, _, tpe_kw) in KERNELS.items():
+        for lanes in FLEET_THROUGHPUT_LANES:
+            if low == "f32":
+                seg = segment_of(cs, obj, tpe._bucket(n), lanes)
+            else:
+                seg = counted(low, lambda: device._segment_for(
+                    obj, cs, n, dev, tpe._default_n_startup_jobs, N_CAND,
+                    tpe._default_gamma, tpe._default_prior_weight,
+                    tpe._default_linear_forgetting, "sqrt", "sqrt",
+                    tpe_kw["ei_impl"], tpe_kw["ei_precision"], 0,
+                    n_lanes=lanes))
+                check_captures(f"fleet (c) {low} {lanes} lanes", low)
+            load(seg, h, n)
+            wall_ms, kernels = counted(low, lambda: profiled(
+                lambda: seg.run(replay_seeds(seg))))
+            check_counters(f"(c) {low} {lanes} lanes",
+                           replays=DEVICE_PROFILED, captures=0)
+            seen = kernel_counts(kernels)
+            want = {k: DEVICE_PROFILED * (k == low) for k in seen}
+            if seen != want:
+                fail(f"fleet (c): {lanes} lanes, {low}: the profiler counted "
+                     f"{seen} EI kernel runs in {DEVICE_PROFILED} replays, "
+                     f"wanted {want}")
+            busy = sum(m for _, _, m in kernels)
+            n_kernels = sum(c for _, c, _ in kernels)
+            k_ms = sum(m for key, _, m in kernels
+                       if KERNEL_SYMBOLS[low] in key) / DEVICE_PROFILED
+            print(f"fleet (c) {low}: {lanes} lanes, profiled replayed "
+                  f"segment of {DEVICE_PROFILED}: "
+                  f"wall_ms_per_replay={wall_ms / DEVICE_PROFILED:.3f} "
+                  f"device_busy_ms_per_replay={busy / DEVICE_PROFILED:.3f} "
+                  f"device_busy_share={busy / wall_ms:.3f} "
+                  f"cuda_kernels_per_replay={n_kernels / DEVICE_PROFILED:.1f}"
+                  f" {name}_runs={seen[low]} {name}_ms_per_run={k_ms:.4f} "
+                  f"pool {seg.pool_bytes} bytes")
+            if low == "f32" and lanes == FLEET_THROUGHPUT_LANES[-1]:
+                for key, c, m in sorted(kernels, key=lambda k: -k[2])[:8]:
+                    print(f"fleet (c) profile, {lanes} lanes: "
+                          f"{m / DEVICE_PROFILED:8.4f} ms/replay "
+                          f"{c / DEVICE_PROFILED:6.1f} runs/replay  "
+                          f"{key[:80]}")
+
+    # (c) the kernels through the wrapper at 31·L columns.
+    rng = np.random.default_rng(5)
+    kernel_times = {low: {} for low in KERNELS}
+    for lanes in FLEET_KERNEL_LANES:
+        c = 31 * lanes
+        below = random_mixture(rng, c, 26, 25, dev)
+        above = random_mixture(rng, c, 1025, 1022, dev)
+        z = torch.as_tensor(rng.normal(0, 3, (c, N_CAND)).astype(np.float32),
+                            device=dev)
+        for low, (name, _, _, kw, _) in KERNELS.items():
+            got = ei_mod.ei_scores(z, *below, *above, **kw)
+            for sl in (slice(0, 31), slice(c - 31, c)):
+                ref = ei_mod.ei_scores_reference(
+                    z[sl], *(t[sl] for t in below + above), **kw)
+                compare(got[sl], ref, f"fleet (c) {low} {c} columns",
+                        TOL[low])
+            ms = cuda_ms(lambda: ei_mod.ei_scores(z, *below, *above, **kw),
+                         reps=10)
+            bound, bound_by = ei_bound_ms(z, below[0], above[0], low)
+            kernel_times[low][lanes] = (ms, bound)
+            print(f"fleet (c) {low}: {name} at [{c}, {N_CAND}] ({lanes} "
+                  f"lanes): {ms:.4f} ms, {ms / c * 1e3:.3f} us per column, "
+                  f"bound {bound:.4f} ms ({bound_by}), {ms / bound:.2f}x "
+                  f"the bound")
+
+    # (d) the hosted cohort: 8 experiments, one dispatch, one launch.
+    domain = base.Domain(objective, space)
+    domain.cs.device = dev
+    exps = [synthetic_trials(cs, 200 + 7 * j, 50 + j, dev)
+            for j in range(COHORT)]
+    seeds = [900 + 13 * j for j in range(COHORT)]
+    ids = [t.new_trial_ids(1) for t in exps]
+    for low, (name, _, _, _, tpe_kw) in KERNELS.items():
+        kw = dict(n_EI_candidates=N_CAND, **tpe_kw)
+        want = [tpe.suggest(ids[j], domain, exps[j], seeds[j], **kw)
+                for j in range(COHORT)]
+        sched = fleet.CohortScheduler(**kw)
+        fleet.reset_counters()
+        handles = counted(low, lambda: sched.suggest_dispatch(
+            [(ids[j], domain, exps[j], seeds[j]) for j in range(COHORT)]))
+        by = dict(ei_mod.ei_scores.launches_by)
+        if by != {k: int(k == low) for k in by} or fleet.dispatches != 1:
+            fail(f"fleet (d) {low}: {fleet.dispatches} cohort dispatches, "
+                 f"EI launches {by}; wanted one of {name}")
+        got = [fleet.suggest_materialize(hd) for hd in handles]
+        for j in range(COHORT):
+            if got[j][0]["misc"]["vals"] != want[j][0]["misc"]["vals"]:
+                fail(f"fleet (d) {low}: experiment {j}'s cohort row differs "
+                     f"from its solo tpe.suggest")
+        print(f"fleet (d) {low}: a CohortScheduler served {COHORT} "
+              f"experiments (histories of 200-249 trials, bucket 256) in "
+              f"one dispatch with one launch of {name} (tier "
+              f"{fleet.cohort_tier_last}); each row equals its solo "
+              f"tpe.suggest")
+    print(f"fleet: EI wrapper over the phase: eager launches "
+          f"{tally.launches}, recorded into graphs {tally.recorded}, graph "
+          f"replays {tally.replayed}")
+    return tally.rows(), kernel_times
+
+
+def phase_card_tests():
+    """``python -m pytest tests_torch_cuda`` in a subprocess: it must exit
+    0 with every collected test passed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    xml = os.path.join(root, "build", "tests_torch_cuda.xml")
+    os.makedirs(os.path.dirname(xml), exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "tests_torch_cuda", "-q",
+         "-p", "no:cacheprovider", f"--junitxml={xml}"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    suite = ElementTree.parse(xml).getroot()
+    if suite.tag != "testsuite":
+        suite = suite.find("testsuite")
+    tests, failures, errors, skipped = (int(suite.get(k)) for k in (
+        "tests", "failures", "errors", "skipped"))
+    passed = tests - failures - errors - skipped
+    if proc.returncode != 0 or tests == 0 or passed < tests:
+        fail(f"card_tests: pytest exited {proc.returncode}, {passed} of "
+             f"{tests} passed:\n{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
+    print(f"card_tests: python -m pytest tests_torch_cuda: {passed} of "
+          f"{tests} passed in {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -1030,17 +1344,22 @@ def main():
     hosted = phase_suggest_step(dev)
     fmin_launches = phase_fmin(dev)
     liar_launches = phase_liar_batch(dev)
-    device_launches = phase_device_mode(dev, hosted)
+    device_launches, solo_rates = phase_device_mode(dev, hosted)
+    fleet_launches, fleet_times = phase_fleet(dev, solo_rates)
+    phase_card_tests()
     print(f"total seconds {time.perf_counter() - t0:.1f}")
     rows = []
     for low, (name, source, replaces, _, _) in KERNELS.items():
         # Launches on the main paths, each counted from zero just before
         # its run: the fmin phase (f32), this lowering's liar_batch run,
-        # and device_mode's eager warm-up steps.  A capture records the
-        # launch into its graph without running it (graph_recorded);
-        # graph_replays counts replays of graphs that hold the kernel, one
-        # kernel run each by the profiler's count in device_mode (c), (d).
-        dev_launches, dev_recorded, dev_replays = device_launches[low]
+        # device_mode's and the fleet's eager warm-up steps and the fleet's
+        # cohort dispatch.  A capture records the launch into its graph
+        # without running it (graph_recorded); graph_replays counts replays
+        # of graphs that hold the kernel, one kernel run each (for all
+        # lanes) by the profiler's count in device_mode (c), (d) and fleet
+        # (c).  fleet_ms: the kernel through its wrapper at 31·L columns.
+        dev_launches, dev_recorded, dev_replays = (
+            a + b for a, b in zip(device_launches[low], fleet_launches[low]))
         n = (liar_launches[low] + (fmin_launches if low == "f32" else 0)
              + dev_launches)
         k = kernels[low]
@@ -1048,6 +1367,10 @@ def main():
                      "replaces": replaces, "launches": n,
                      "graph_recorded": dev_recorded,
                      "graph_replays": dev_replays,
+                     "fleet_ms": {f"31x{lanes}": ms for lanes, (ms, _)
+                                  in fleet_times[low].items()},
+                     "fleet_bound_ms": {f"31x{lanes}": b for lanes, (_, b)
+                                        in fleet_times[low].items()},
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None,

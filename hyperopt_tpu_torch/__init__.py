@@ -6,11 +6,13 @@ the numeric core in PyTorch and the EI scoring of the TPE step in CUDA
 kernels written for the H100 (``ops/ei_scores.py``), the history kept
 resident on the device (``history.py``).  Device mode (``device.py``:
 ``fmin(mode="device")``, ``fmin_device``) runs the whole loop on the
-device as CUDA-graph replays of the TPE step.  Entry points run on CUDA
-unless the caller passes ``device="cpu"``.
+device as CUDA-graph replays of the TPE step; the fleet (``fleet.py``:
+``fmin_fleet``, ``fmin_device(n_runs=)``, ``CohortScheduler``) runs many
+experiments as the lanes of one step.  Entry points run on CUDA unless the
+caller passes ``device="cpu"``.
 """
 
-from . import device, history, hp, rand, tpe  # noqa: F401
+from . import device, fleet, history, hp, rand, tpe  # noqa: F401
 from .base import (  # noqa: F401
     Ctrl,
     Domain,
@@ -31,6 +33,7 @@ from .base import (  # noqa: F401
 )
 from .exceptions import AllTrialsFailed, DuplicateLabel  # noqa: F401
 from .device import fmin_device  # noqa: F401
+from .fleet import fmin_fleet  # noqa: F401
 from .fmin import (  # noqa: F401
     FMinIter,
     fmin,
@@ -42,8 +45,8 @@ from .space import CompiledSpace, compile_space  # noqa: F401
 from .utils.early_stop import no_progress_loss  # noqa: F401
 
 __all__ = [
-    "fmin", "fmin_device", "FMinIter", "space_eval", "generate_trials_to_calculate",
-    "hp", "tpe", "rand", "scope", "history", "device",
+    "fmin", "fmin_device", "fmin_fleet", "FMinIter", "space_eval", "generate_trials_to_calculate",
+    "hp", "tpe", "rand", "scope", "history", "device", "fleet",
     "Trials", "trials_from_docs", "Domain", "Ctrl",
     "CompiledSpace", "compile_space", "no_progress_loss",
     "STATUS_NEW", "STATUS_RUNNING", "STATUS_SUSPENDED", "STATUS_OK",

@@ -231,6 +231,21 @@ class Trials:
             # best_trial does not: state flips mutate docs in place.
             self._best_cache = None
 
+    def delete_all(self):
+        """Remove every trial, and the device rings that held them
+        (``history.forget``, which moves the wipe generation on: a reused
+        tid cannot pass for a stale resident row)."""
+        with self._lock:
+            self._dynamic_trials = []
+            self._trials = []
+            self._ids = set()
+            self.attachments = {}
+            self._soa_cache = None
+            self._best_cache = None
+        from . import history
+
+        history.forget(self)
+
     def insert_trial_doc(self, doc):
         return self.insert_trial_docs([doc])[0]
 

@@ -1,8 +1,9 @@
 """Device mode: the suggest→evaluate→record loop on the GPU, one CUDA-graph
 replay per trial.
 
-Counterpart of ``hyperopt_tpu/device.py`` for solo runs (``fmin_device``
-and the engine behind ``fmin(mode="device", sync_stride=S)``).  The hosted
+Counterpart of ``hyperopt_tpu/device.py`` (``fmin_device``, with
+``n_runs`` restarts, and the engine behind ``fmin(mode="device",
+sync_stride=S)``); ``fleet.py::fmin_fleet`` runs on the same step.  The hosted
 loop pays ~730 eager kernel launches of the TPE step, a fetch and the
 Trials bookkeeping per trial.  When the objective is a torch function, the
 whole trial can stay on the card: draw, propose, evaluate, insert the row
@@ -20,24 +21,31 @@ positional parameter without a default, it also gets the activity dict
 capture, so it must be capture-safe: torch ops on those tensors only; no
 ``.item()``, ``.cpu()``, ``.numpy()``, no Python branching on values (use
 ``torch.where``), no tensors made from host data.  An objective that
-breaks the capture raises :class:`CaptureError`.  On the CPU
+breaks the capture raises :class:`CaptureError`.  Over lanes it is
+called once, under ``torch.func.vmap`` (JAX's ``vmap``), with ``[L]``
+parameters.  On the CPU
 (``device="cpu"``) the same step runs eagerly; on CUDA it is captured and
 replayed, or it raises: no path runs eagerly on the card.
 
 **The step graph.**  The history stays in one bucket for the whole run,
 ``n_cap = _bucket(max_evals)``, in static buffers with one spare row past
 the bucket.  One graph per (``id(fn)``, bucket, tuning keywords, EI
-lowering, device) captures one trial:
+lowering, device, lane count ``L``) captures one trial of each of ``L``
+independent runs (the fleet's lanes; ``L = 1`` for a solo run), their
+buffers stacked along a leading lane axis:
 
 1. both arms of the proposal: a startup draw (``CompiledSpace.sample``)
-   and a TPE step (``_TpeKernel._suggest_one_tel``, with its EI kernel),
-   each from its own ``torch.Generator``, and ``torch.where`` on the
-   device count of ok rows picks one (a graph cannot branch; the JAX
-   package's ``lax.cond``);
-2. the objective on the picked row;
-3. the insert at the device index ``i`` (``tpe._insert_row``), ``i += 1``.
+   and a TPE step (``_TpeKernel._suggest_lanes``, with its EI kernel
+   launched once for all lanes), each lane's uniforms from its own pair
+   of ``torch.Generator``s, and ``torch.where`` on the device count of
+   ok rows picks one per lane (a graph cannot branch; the JAX package's
+   ``lax.cond``);
+2. the objective on the picked rows;
+3. the insert at each lane's device index ``i`` (``tpe._insert_row``),
+   ``i += 1``.
 
-Before each replay the host seeds both generators with the trial's seed,
+Before each replay the host seeds each lane's two generators with that
+lane's trial seed (``2L`` ``manual_seed`` calls),
 one ``rstate.integers(2**31 - 1)`` per trial as in the hosted loop, so
 each arm draws exactly what the hosted ``rand.suggest_batch`` or
 ``tpe.suggest_dispatch`` draws from that seed.  The stride moves only the
@@ -60,8 +68,8 @@ only on the CPU).  ``ei_scores.launches`` counts the EI kernel's eager
 launches (the warm-up steps); a capture adds to ``ei_scores.recorded_by``
 instead, and replays pass through neither.
 
-Not in this slice: ``n_runs > 1`` and ``mesh=`` (the fleet slice,
-``ROADMAP.md`` Queue 1), the telemetry slab (the obs slice).
+Not in this slice: ``mesh=`` (the dispatch slice, ``ROADMAP.md``
+Queue 1), the telemetry slab (the obs slice).
 """
 
 from __future__ import annotations
@@ -88,6 +96,7 @@ from .tpe import (
     _default_prior_weight,
     _insert_row,
     get_kernel,
+    stack_noise,
 )
 from .utils.progress import default_callback, no_progress_callback
 
@@ -105,8 +114,8 @@ _POLL_EVERY = 8
 _RUN_AHEAD = 4 * _POLL_EVERY
 # "No patience": a count that is never reached.
 _NO_PATIENCE = 1 << 62
-_NOT_PORTED = ("{what} is not ported yet: it belongs to the fleet slice "
-               "(fleet.py / fmin_fleet, ROADMAP.md Queue 1)")
+_NOT_PORTED = ("{what} is not ported yet: it belongs to the dispatch "
+               "slice (dispatch.py / parallel, ROADMAP.md Queue 1)")
 _CONTRACT = (
     "device mode captures the objective inside a CUDA graph of the TPE "
     "step: it takes a dict {label: 0-d float32 tensor} (and the activity "
@@ -172,43 +181,58 @@ def _wrap_objective(fn, cs: CompiledSpace):
 
 
 class _Segment:
-    """One trial of device mode, on static buffers: captured as a CUDA graph
-    on the card, run eagerly on the CPU.  Built by :func:`_build_segment`.
+    """One trial of device mode for ``n_lanes`` independent runs (the
+    fleet's lanes; one lane for a solo run), on static buffers: captured as
+    one CUDA graph on the card, run eagerly on the CPU.  Built by
+    :func:`_build_segment`.
 
-    Buffers: the history ``hv, ha, hl, hok`` (``[n_cap + 1, ...]``; the
-    TPE step reads the first ``n_cap`` rows, a trial that must not land
-    writes the spare last one), the raw losses ``raw``, the row index
-    ``i`` and ``limit`` (a trial lands while ``i < limit``), and the
-    no-progress state of ``fmin_device`` (``patience``, ``since``,
-    ``best``, ``min_improvement``).  :meth:`load` fills them in place, so
-    the addresses the graph captured stay valid.  A run holds ``lock``
-    from :meth:`load` to its last :meth:`fetch`: runs of one captured step
-    from several threads take turns."""
+    Buffers, each with a leading lane axis: the history ``hv, ha, hl, hok``
+    (``[L, n_cap + 1, ...]``; the TPE step reads the first ``n_cap`` rows,
+    a trial that must not land writes its lane's spare last row), the raw
+    losses ``raw``, the row index ``i`` and ``limit`` (lane ``j``'s trial
+    lands while ``i[j] < limit[j]``), and the no-progress state of
+    ``fmin_device`` (``patience``, ``since``, ``best``,
+    ``min_improvement``), all ``[L]``.  :meth:`load` fills them in place,
+    so the addresses the graph captured stay valid.  Lane ``j`` owns the
+    generators ``gens[2j]`` (startup draws) and ``gens[2j + 1]`` (the TPE
+    step's uniforms).  A run holds ``lock`` from :meth:`load` to its last
+    :meth:`fetch`: runs of one captured step from several threads take
+    turns."""
 
-    def __init__(self, cs, kern, eval_one, n_startup, gamma, prior_weight):
+    def __init__(self, cs, kern, eval_one, n_startup, gamma, prior_weight,
+                 n_lanes=1):
         self.cs = cs
         self.kern = kern
-        self.eval_one = eval_one
+        self.n_lanes = n_lanes = int(n_lanes)
+        kern.check_lanes(n_lanes)
+        # The objective over the lanes: one call with [L]-shaped
+        # parameters (what JAX's vmap does).
+        self.eval_lanes = torch.func.vmap(eval_one)
         self.n_startup = int(n_startup)
         self.gamma = float(gamma)
         self.prior_weight = float(prior_weight)
         dev = self.device = kern.device
         self.n_cap = n_cap = kern.n_cap
-        p = cs.n_params
+        cap, p, lanes = n_cap + 1, cs.n_params, (n_lanes,)
         f32, i64 = torch.float32, torch.int64
-        self.hv = torch.zeros((n_cap + 1, p), dtype=f32, device=dev)
-        self.ha = torch.zeros((n_cap + 1, p), dtype=torch.bool, device=dev)
-        self.hl = torch.full((n_cap + 1,), math.inf, dtype=f32, device=dev)
-        self.hok = torch.zeros((n_cap + 1,), dtype=torch.bool, device=dev)
-        self.raw = torch.full((n_cap + 1,), math.inf, dtype=f32, device=dev)
-        self.i = torch.zeros((1,), dtype=i64, device=dev)
-        self.limit = torch.zeros((1,), dtype=i64, device=dev)
-        self.spare = torch.full((1,), n_cap, dtype=i64, device=dev)
-        self.patience = torch.full((1,), _NO_PATIENCE, dtype=i64, device=dev)
-        self.since = torch.zeros((1,), dtype=i64, device=dev)
-        self.best = torch.full((1,), math.inf, dtype=f32, device=dev)
-        self.min_improvement = torch.zeros((1,), dtype=f32, device=dev)
-        self.gens = (torch.Generator(device=dev), torch.Generator(device=dev))
+        self.hv = torch.zeros((n_lanes, cap, p), dtype=f32, device=dev)
+        self.ha = torch.zeros((n_lanes, cap, p), dtype=torch.bool,
+                              device=dev)
+        self.hl = torch.full((n_lanes, cap), math.inf, dtype=f32, device=dev)
+        self.hok = torch.zeros((n_lanes, cap), dtype=torch.bool, device=dev)
+        self.raw = torch.full((n_lanes, cap), math.inf, dtype=f32,
+                              device=dev)
+        # Lane j's rows start at j·cap of the flattened buffers.
+        self.base = torch.arange(n_lanes, dtype=i64, device=dev) * cap
+        self.i = torch.zeros(lanes, dtype=i64, device=dev)
+        self.limit = torch.zeros(lanes, dtype=i64, device=dev)
+        self.spare = torch.full(lanes, n_cap, dtype=i64, device=dev)
+        self.patience = torch.full(lanes, _NO_PATIENCE, dtype=i64,
+                                   device=dev)
+        self.since = torch.zeros(lanes, dtype=i64, device=dev)
+        self.best = torch.full(lanes, math.inf, dtype=f32, device=dev)
+        self.min_improvement = torch.zeros(lanes, dtype=f32, device=dev)
+        self.gens = [torch.Generator(device=dev) for _ in range(2 * n_lanes)]
         self.lock = threading.Lock()
         self._patience = _NO_PATIENCE
         self.graph = None
@@ -216,35 +240,45 @@ class _Segment:
         if dev.type == "cuda":
             self._capture()
 
-    def _step(self, noise=None):
-        """One trial, in place on the buffers.  ``noise``: the TPE arm's
-        uniforms (``_TpeKernel.draw_noise`` layout) instead of its
-        generator's."""
-        n = self.n_cap
-        hist = (self.hv[:n], self.ha[:n], self.hl[:n], self.hok[:n])
-        g_start, g_tpe = self.gens
-        n_ok = torch.sum(hist[3])
-        sv, sa = self.cs.sample(1, generator=g_start, device=self.device)
-        tv, ta, _, _ = self.kern._suggest_one_tel(
-            *hist, self.gamma, self.prior_weight, generator=g_tpe,
-            noise=noise)
-        startup = n_ok < self.n_startup
-        row = torch.where(startup, sv[0], tv)
-        act = torch.where(startup, sa[0], ta)
-        loss = self.eval_one(row, act)
+    def _step(self, noises=None):
+        """One trial of every lane, in place on the buffers.  ``noises``:
+        the TPE arm's uniforms, one :meth:`_TpeKernel.draw_noise` dict per
+        lane, instead of the lanes' generators'."""
+        n, lanes = self.n_cap, self.n_lanes
+        hist = (self.hv[:, :n], self.ha[:, :n], self.hl[:, :n],
+                self.hok[:, :n])
+        n_ok = torch.sum(hist[3], dim=-1)
+        # Each lane draws what a solo run draws from its own generators;
+        # the draws are stacked along the lane axis.
+        starts = [self.cs.draw_uniforms(1, self.gens[2 * j], self.device)
+                  for j in range(lanes)]
+        su = starts[0] if lanes == 1 else {
+            k: torch.cat([u[k] for u in starts]) for k in starts[0]}
+        sv, sa = self.cs.sample(lanes, noise=su, device=self.device)
+        if noises is None:
+            noises = [self.kern.draw_noise(self.gens[2 * j + 1])
+                      for j in range(lanes)]
+        tv, ta, _, _ = self.kern._suggest_lanes(
+            *hist, self.gamma, self.prior_weight, noise=stack_noise(noises))
+        startup = (n_ok < self.n_startup)[:, None]
+        row = torch.where(startup, sv, tv)
+        act = torch.where(startup, sa, ta)
+        loss = self.eval_lanes(row, act)
         lok = torch.isfinite(loss)
         live = (self.i < self.limit) & (self.since < self.patience)
-        at = torch.where(live, self.i, self.spare)
-        _insert_row(self.hv, self.ha, self.hl, self.hok, at, row, act,
-                    torch.where(lok, loss, math.inf), lok)
-        self.raw.index_copy_(0, at, loss.reshape(1))
+        at = torch.where(live, self.i, self.spare) + self.base
+        flat = [b.view(-1, *b.shape[2:]) for b in
+                (self.hv, self.ha, self.hl, self.hok)]
+        _insert_row(*flat, at, row, act, torch.where(lok, loss, math.inf),
+                    lok)
+        self.raw.view(-1).index_copy_(0, at, loss)
         # No-progress count (fmin_device's patience): TPE trials only; a
         # NaN loss neither improves nor moves the best.
         best = self.best
         thresh = torch.where(torch.isfinite(best),
                              best - torch.abs(best) * self.min_improvement,
                              best)
-        counted = live & ~startup
+        counted = live & ~startup[:, 0]
         self.since.copy_(torch.where(
             counted, torch.where(loss < thresh, 0, self.since + 1),
             self.since))
@@ -254,9 +288,12 @@ class _Segment:
 
     def _capture(self):
         """Warm up on a side stream, then capture :meth:`_step`.  While
-        ``limit`` is 0 every write goes to the spare row."""
+        ``limit`` is 0 every write goes to the spare rows."""
         global captures
         dev = self.device
+        # The sampler's constants are uploaded once per device: before the
+        # warm-up, whose sync check would take the upload for a round trip.
+        self.cs._consts(dev)
         with torch.cuda.device(dev):
             try:
                 side = torch.cuda.Stream(dev)
@@ -281,17 +318,18 @@ class _Segment:
         self.graph = graph
         self.pool_bytes = _pool_bytes(graph)
         captures += 1
-        logger.info("device mode: captured the TPE step (n_cap=%d); its "
-                    "graph's memory pool holds %d bytes", self.n_cap,
-                    self.pool_bytes)
+        logger.info("device mode: captured the TPE step (n_cap=%d, %d "
+                    "lanes); its graph's memory pool holds %d bytes",
+                    self.n_cap, self.n_lanes, self.pool_bytes)
 
     def load(self, vals, active, loss, ok, raw_loss, limit, patience=None,
              min_improvement=0.0):
-        """Set the run's state in place: the first ``len(loss)`` history
-        rows (host arrays; ``raw_loss`` what the docs hold), padding
-        after them, ``i = len(loss)``, trials land while ``i < limit``;
-        ``patience`` (None: never stop) and ``min_improvement`` for the
-        no-progress stop, counted from the best ok loss loaded."""
+        """Set the run's state in place, the same for every lane: the first
+        ``len(loss)`` history rows (host arrays; ``raw_loss`` what the docs
+        hold), padding after them, ``i = len(loss)``, trials land while
+        ``i < limit``; ``patience`` (None: never stop) and
+        ``min_improvement`` for the no-progress stop, counted from the best
+        ok loss loaded."""
         n, p = len(loss), self.cs.n_params
         if not n <= limit <= self.n_cap:
             raise ValueError(f"limit {limit} must lie in [{n}, {self.n_cap}] "
@@ -306,7 +344,7 @@ class _Segment:
             vals, active, loss, ok, raw_loss
         for buf, host in zip((self.hv, self.ha, self.hl, self.hok, self.raw),
                              (hv, ha, hl, hok, raw)):
-            buf.copy_(torch.from_numpy(host))
+            buf.copy_(torch.from_numpy(host).expand_as(buf))
         okl = hl[:n][hok[:n]]
         self._patience = _NO_PATIENCE if patience is None else int(patience)
         self.i.fill_(n)
@@ -317,27 +355,34 @@ class _Segment:
         self.min_improvement.fill_(float(min_improvement))
 
     def run(self, seeds, noises=None):
-        """Run one trial per seed from the current index.  ``noises[t]``
-        replaces trial ``t``'s TPE uniforms (CPU only: a graph cannot take
-        them).  With a patience loaded, stop replaying once the no-progress
-        stop is seen.  On the card, every ``_POLL_EVERY`` replays the stop
-        count is copied to pinned memory without a sync; a copy is read
-        once it has landed, and the host waits on the oldest unread one
-        only when it is ``_RUN_AHEAD`` replays ahead of it (the card has
-        those queued meanwhile).  Replays past the stop land nothing."""
+        """Run one trial of every lane per entry of ``seeds`` from the
+        current index: ``seeds[t]`` is an int (one lane) or one seed per
+        lane.  ``noises[t]`` replaces trial ``t``'s TPE uniforms: a
+        :meth:`_TpeKernel.draw_noise` dict (one lane) or a list of one per
+        lane (CPU only: a graph cannot take them).  With a patience loaded,
+        stop replaying once every lane's no-progress stop is seen.  On the
+        card, every ``_POLL_EVERY`` replays the stop counts are copied to
+        pinned memory without a sync; a copy is read once it has landed,
+        and the host waits on the oldest unread one only when it is
+        ``_RUN_AHEAD`` replays ahead of it (the card has those queued
+        meanwhile).  Replays past a lane's stop land nothing in it."""
         global replays, eager_steps
+        seeds = np.asarray(seeds, np.int64).reshape(-1, self.n_lanes)
         if noises is not None:
             if self.graph is not None:
                 raise ValueError("noises= runs the step eagerly: CPU only")
             if len(noises) != len(seeds):
-                raise ValueError(f"{len(noises)} noise dicts for "
+                raise ValueError(f"{len(noises)} noise entries for "
                                  f"{len(seeds)} trials")
+            noises = [[nz] if isinstance(nz, dict) else list(nz)
+                      for nz in noises]
         polls = deque()
         stop_poll = self._patience != _NO_PATIENCE
-        for t, seed in enumerate(seeds):
-            s = int(seed) % (2 ** 32)
-            for g in self.gens:
-                g.manual_seed(s)
+        for t, lane_seeds in enumerate(seeds):
+            for j, seed in enumerate(lane_seeds):
+                s = int(seed) % (2 ** 32)
+                self.gens[2 * j].manual_seed(s)
+                self.gens[2 * j + 1].manual_seed(s)
             if self.graph is not None:
                 self.graph.replay()
                 replays += 1
@@ -347,11 +392,12 @@ class _Segment:
             if not stop_poll:
                 continue
             if self.graph is None:
-                if int(self.since) >= self._patience:
+                if self._stopped(self.since):
                     return
                 continue
             if (t + 1) % _POLL_EVERY == 0:
-                since = torch.empty((1,), dtype=torch.int64, pin_memory=True)
+                since = torch.empty((self.n_lanes,), dtype=torch.int64,
+                                    pin_memory=True)
                 since.copy_(self.since, non_blocking=True)
                 landed = torch.cuda.Event()
                 landed.record()
@@ -360,25 +406,35 @@ class _Segment:
                              or len(polls) * _POLL_EVERY > _RUN_AHEAD):
                 since, landed = polls.popleft()
                 landed.synchronize()
-                if int(since[0]) >= self._patience:
+                if self._stopped(since):
                     return
 
+    def _stopped(self, since):
+        """Whether every lane's no-progress count has reached the
+        patience."""
+        return bool((since.cpu() >= self._patience).all())
+
     def fetch(self, i0, i1):
-        """Rows ``[i0, i1)`` and the row index, in ONE device→host copy
-        (one fetch sync, the end of a segment): ``(vals f32[s, P], active
-        bool[s, P], raw losses f32[s], i)``."""
+        """Rows ``[i0, i1)`` of every lane and the row indices, in ONE
+        device→host copy (one fetch sync, the end of a segment):
+        ``(vals f32[L, s, P], active bool[L, s, P], raw losses f32[L, s],
+        i int[L])``."""
         global fetch_syncs, segments
         fetch_syncs += 1
         segments += 1
         sl = slice(i0, i1)
-        flat = torch.cat([self.hv[sl].reshape(-1),
-                          self.ha[sl].reshape(-1).to(torch.float32),
-                          self.raw[sl], self.i.to(torch.float32)])
+        lanes = self.n_lanes
+        flat = torch.cat([self.hv[:, sl].reshape(-1),
+                          self.ha[:, sl].reshape(-1).to(torch.float32),
+                          self.raw[:, sl].reshape(-1),
+                          self.i.to(torch.float32)])
         flat = flat.cpu().numpy()
         s, p = i1 - i0, self.cs.n_params
-        vals = flat[:s * p].reshape(s, p)
-        active = flat[s * p:2 * s * p].reshape(s, p) > 0.5
-        return vals, active, flat[2 * s * p:-1], int(flat[-1])
+        k = lanes * s * p
+        vals = flat[:k].reshape(lanes, s, p)
+        active = flat[k:2 * k].reshape(lanes, s, p) > 0.5
+        raw = flat[2 * k:2 * k + lanes * s].reshape(lanes, s)
+        return vals, active, raw, flat[-lanes:].astype(np.int64)
 
 
 def _pool_bytes(graph):
@@ -390,18 +446,21 @@ def _pool_bytes(graph):
                if tuple(seg.get("segment_pool_id", ())) == pool)
 
 
-def _build_segment(cs, kern, eval_one, n_startup, gamma, prior_weight):
+def _build_segment(cs, kern, eval_one, n_startup, gamma, prior_weight,
+                   n_lanes=1):
     """The per-trial step of device mode for one kernel (bucket, lowering,
-    device) and objective: a :class:`_Segment`, captured on CUDA.  Its
-    :meth:`_Segment.run` runs a segment of trials, one per seed."""
-    return _Segment(cs, kern, eval_one, n_startup, gamma, prior_weight)
+    device), objective and lane count: a :class:`_Segment`, captured on
+    CUDA.  Its :meth:`_Segment.run` runs a segment of trials, one per
+    seed (per lane)."""
+    return _Segment(cs, kern, eval_one, n_startup, gamma, prior_weight,
+                    n_lanes)
 
 
 def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
                  gamma, prior_weight, linear_forgetting, split, cat_prior,
-                 ei_impl, ei_precision, ei_topm):
-    """The cached segment for this objective, bucket and tuning, built
-    (and captured) on a miss."""
+                 ei_impl, ei_precision, ei_topm, n_lanes=1):
+    """The cached segment for this objective, bucket, tuning and lane
+    count, built (and captured) on a miss."""
     global run_cache_hits, run_cache_misses
     n_cap = _bucket(max_evals)
     dev = torch.device(device)
@@ -411,7 +470,7 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
     key = (id(fn), n_cap, str(dev), int(n_startup_jobs), float(gamma),
            float(prior_weight), int(linear_forgetting),
            int(n_EI_candidates), split, cat_prior, ei_impl, ei_precision,
-           int(ei_topm))
+           int(ei_topm), int(n_lanes))
     with _CACHE_LOCK:
         cache = cs.__dict__.setdefault("_device_runs", OrderedDict())
         hit = cache.get(key)
@@ -424,7 +483,7 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
                           int(linear_forgetting), split, cat_prior, dev,
                           ei_impl, ei_precision, int(ei_topm))
         seg = _build_segment(cs, kern, _wrap_objective(fn, cs),
-                             n_startup_jobs, gamma, prior_weight)
+                             n_startup_jobs, gamma, prior_weight, n_lanes)
         cache[key] = (fn, seg)
         while len(cache) > _RUN_CACHE_CAP:
             cache.popitem(last=False)
@@ -434,6 +493,12 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
 def _seeds(rstate, n):
     """One seed per trial: the hosted loop's draw per suggest call."""
     return [int(rstate.integers(2 ** 31 - 1)) for _ in range(n)]
+
+
+def _lane_seeds(rstates, n):
+    """``[n, L]`` seeds: lane ``j`` draws :func:`_seeds` from
+    ``rstates[j]``."""
+    return np.asarray([_seeds(r, n) for r in rstates], np.int64).T
 
 
 def fmin_device(fn, space, max_evals, seed=0,
@@ -465,14 +530,25 @@ def fmin_device(fn, space, max_evals, seed=0,
     (resumed trials included).  A non-finite loss is not ok: it does not
     count toward startup and ranks last in the γ-split.
 
-    ``n_runs > 1`` and ``mesh=`` raise ``NotImplementedError`` (the fleet
-    slice).  ``device`` defaults to CUDA."""
+    ``n_runs > 1`` runs that many independent restarts as the lanes of one
+    captured step (the fleet): run ``j`` is ``fmin_device(seed=seed + j)``
+    bit for bit.  ``best``/``best_loss`` are the best over all runs;
+    ``info["losses"/"vals"/"active"]`` gain a leading ``[n_runs]`` axis,
+    ``best_index`` is ``(run, trial)`` and ``n_trials`` a list.  Patience
+    is per run, and the replays stop once every run has stopped.  ``init``
+    does not compose with ``n_runs > 1``.
+
+    ``mesh=`` raises ``NotImplementedError`` (the dispatch slice).
+    ``device`` defaults to CUDA."""
     if mesh is not None:
         raise NotImplementedError(
             _NOT_PORTED.format(what="fmin_device(mesh=)"))
-    if int(n_runs) != 1:
-        raise NotImplementedError(
-            _NOT_PORTED.format(what="fmin_device(n_runs > 1)"))
+    n_runs = int(n_runs)
+    if n_runs < 1:
+        raise ValueError(f"n_runs must be >= 1, got {n_runs}")
+    if init is not None and n_runs > 1:
+        raise ValueError("init= resumes one run: it does not compose with "
+                         "n_runs > 1")
     cs = space if isinstance(space, CompiledSpace) else compile_space(space)
     dev = resolve_device(device)
     max_evals = int(max_evals)
@@ -505,21 +581,43 @@ def fmin_device(fn, space, max_evals, seed=0,
     seg = _segment_for(fn, cs, max_evals, dev, n_startup_jobs,
                        n_EI_candidates, gamma, prior_weight,
                        linear_forgetting, split, cat_prior, ei_impl,
-                       ei_precision, ei_topm)
+                       ei_precision, ei_topm, n_lanes=n_runs)
     ok = np.isfinite(pl)
+    rstates = [np.random.default_rng(int(seed) + j) for j in range(n_runs)]
     with seg.lock:
         seg.load(pv, pa, np.where(ok, pl, np.inf), ok, pl, limit=max_evals,
                  patience=patience, min_improvement=min_improvement)
-        seg.run(_seeds(np.random.default_rng(seed), max_evals - n_prev))
+        seg.run(_lane_seeds(rstates, max_evals - n_prev))
         vals, active, losses, n_done = seg.fetch(0, max_evals)
+    # NaN-safe best: a non-finite loss loses to any finite one.
     order = np.where(np.isnan(losses), np.inf, losses)
-    bi = int(np.argmin(order))
-    best = {q.label: cs._param_value(q, vals[bi, q.pid])
-            for q in cs.params if active[bi, q.pid]}
-    info = {"losses": losses, "vals": vals, "active": active,
-            "best_loss": float(losses[bi]), "best_index": bi,
-            "n_trials": n_done}
+    bi = tuple(int(k) for k in
+               np.unravel_index(int(np.argmin(order)), order.shape))
+    best = {q.label: cs._param_value(q, vals[bi][q.pid])
+            for q in cs.params if active[bi][q.pid]}
+    if n_runs == 1:
+        info = {"losses": losses[0], "vals": vals[0], "active": active[0],
+                "best_loss": float(losses[bi]), "best_index": bi[1],
+                "n_trials": int(n_done[0])}
+    else:
+        info = {"losses": losses, "vals": vals, "active": active,
+                "best_loss": float(losses[bi]), "best_index": bi,
+                "n_trials": [int(k) for k in n_done]}
     return best, info
+
+
+def _land(trials, cs, rows, acts, losses):
+    """Insert a segment's trials into ``trials`` as DONE docs: the rows, the
+    activity masks and the raw losses fetched from the device."""
+    docs = docs_from_samples(cs, trials.new_trial_ids(len(losses)), rows,
+                             acts, exp_key=getattr(trials, "exp_key", None))
+    now = coarse_utcnow()
+    for doc, loss in zip(docs, losses):
+        doc["state"] = JOB_STATE_DONE
+        doc["result"] = {"loss": float(loss), "status": STATUS_OK}
+        doc["book_time"] = doc["refresh_time"] = now
+    trials.insert_trial_docs(docs)
+    trials.refresh()
 
 
 def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
@@ -564,7 +662,6 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
                        n_EI_candidates, gamma, prior_weight,
                        linear_forgetting, split, cat_prior, ei_impl,
                        ei_precision, ei_topm)
-    exp_key = getattr(trials, "exp_key", None)
     early_stop_args: list = []
     i = n_prev
     progress_ctx = default_callback if show_progressbar \
@@ -576,17 +673,8 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
             s = (max_evals - i if sync_stride is None
                  else min(sync_stride, max_evals - i))
             seg.run(_seeds(rstate, s))
-            rows, acts, losses, _ = seg.fetch(i, i + s)
-            new_ids = trials.new_trial_ids(s)
-            docs = docs_from_samples(cs, new_ids, rows, acts,
-                                     exp_key=exp_key)
-            now = coarse_utcnow()
-            for doc, loss in zip(docs, losses):
-                doc["state"] = JOB_STATE_DONE
-                doc["result"] = {"loss": float(loss), "status": STATUS_OK}
-                doc["book_time"] = doc["refresh_time"] = now
-            trials.insert_trial_docs(docs)
-            trials.refresh()
+            (rows,), (acts,), (losses,), _ = seg.fetch(i, i + s)
+            _land(trials, cs, rows, acts, losses)
             trials_landed += s
             i += s
             prog.update(s)

@@ -56,6 +56,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _REF_ELEMS = 1 << 24
 # Finite floor of the quadratic's constant term (pallas_gmm.py's -1e30).
 _A0_FLOOR = -1e30
+#: Columns a launch takes: the kernels put them on ``grid.y``.
+MAX_COLUMNS = 65535
 
 _libs: dict = {}
 #: Compiler report (registers, shared memory, spills) of each library
@@ -190,9 +192,9 @@ def ei_scores(z, logw_b, mu_b, sg_b, logw_a, mu_a, sg_a, mxu=False,
         if not t.is_contiguous():
             raise ValueError("ei_scores kernel takes contiguous tensors")
     c, n = z.shape
-    if c > 65535:
-        raise ValueError(f"ei_scores kernel takes at most 65535 columns, "
-                         f"got {c}")
+    if c > MAX_COLUMNS:
+        raise ValueError(f"ei_scores kernel takes at most {MAX_COLUMNS} "
+                         f"columns, got {c}")
     low = lowering(mxu, bf16)
     lib_name, entry = _ENTRIES[low]
     if lib_name not in _libs:

@@ -10,6 +10,9 @@ uniform, then the truncated normal is drawn as ``ndtri(U[Φ(a), Φ(b)])``.
 The two uniforms per draw are arguments, so callers (and tests) can hand in
 the same numbers the JAX version draws.
 
+Every float sum runs in a fixed order (``fixed_order.py``), so a mixture
+scores and samples the same bits whatever batch it sits in.
+
 Log kinds are scored in fit (log) space; the ``1/x`` Jacobian cancels in
 the EI difference and is omitted, as in the JAX package.
 """
@@ -19,6 +22,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .fixed_order import prefix_sum, tree_logsumexp
 
 _TINY = 1e-12
 _U_MAX = 1.0 - 1e-7
@@ -72,7 +77,7 @@ def _log_trunc_mass(logw, mu, sigma, trunc_lo, trunc_hi):
     lo = _bounds(trunc_lo, logw)[..., None]
     hi = _bounds(trunc_hi, logw)[..., None]
     log_wmass = logw + log_ndtr_diff((lo - mu) / sigma, (hi - mu) / sigma)
-    return log_wmass, torch.logsumexp(log_wmass, dim=-1)
+    return log_wmass, tree_logsumexp(log_wmass, dim=-1)
 
 
 def gmm_logpdf(z, logw, mu, sigma, trunc_lo=-math.inf, trunc_hi=math.inf):
@@ -83,7 +88,7 @@ def gmm_logpdf(z, logw, mu, sigma, trunc_lo=-math.inf, trunc_hi=math.inf):
     _, log_z = _log_trunc_mass(logw, mu, sigma, trunc_lo, trunc_hi)
     t = (z[..., :, None] - mu[..., None, :]) / sigma[..., None, :]
     lp = -0.5 * t * t - torch.log(sigma)[..., None, :] - _HALF_LOG_2PI
-    out = torch.logsumexp(lp + logw[..., None, :], dim=-1) - log_z[..., None]
+    out = tree_logsumexp(lp + logw[..., None, :], dim=-1) - log_z[..., None]
     lo = _bounds(trunc_lo, logw)[..., None]
     hi = _bounds(trunc_hi, logw)[..., None]
     in_bounds = (z >= lo) & (z <= hi)
@@ -123,7 +128,7 @@ def gmm_log_qmass(zl, zh, logw, mu, sigma, trunc_lo=-math.inf,
     b = (torch.minimum(zh, hi)[..., :, None] - mu[..., None, :]) \
         / sigma[..., None, :]
     log_mass = log_ndtr_diff(a, torch.maximum(a, b))             # [..., n, K]
-    return (torch.logsumexp(log_mass + logw[..., None, :], dim=-1)
+    return (tree_logsumexp(log_mass + logw[..., None, :], dim=-1)
             - log_z[..., None])
 
 
@@ -151,7 +156,7 @@ def gmm_sample(logw, mu, sigma, trunc_lo, trunc_hi, uc, u):
     truncated normal.  The component is drawn ∝ ``w_k · mass_k`` (what a
     rejection sampler induces), then ``ndtri(U[Φ(a), Φ(b)])``."""
     log_wmass, log_z = _log_trunc_mass(logw, mu, sigma, trunc_lo, trunc_hi)
-    cdf = torch.cumsum(torch.exp(log_wmass - log_z[..., None]), dim=-1)
+    cdf = prefix_sum(torch.exp(log_wmass - log_z[..., None]), dim=-1)
     # Clamp to the highest live index (components are mu-sorted; an
     # interior underflowed one must not take the top CDF segment).
     k_idx = torch.arange(log_wmass.shape[-1], device=logw.device)

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from .fixed_order import tree_sum
+
 
 def forgetting_weights(rank, n_obs, lf):
     """Linear-forgetting weight for observations by recency rank.
@@ -44,7 +46,7 @@ def fit_parzen(x, w, n_obs, prior_mu, prior_sigma, prior_weight, out_cap):
       w: f32[B, N] per-observation weights, 0 on padding.
       n_obs: int[B] live observations per row (``n_obs + 1 <= out_cap``).
       prior_mu, prior_sigma: f32[B] prior-component parameters.
-      prior_weight: scalar prior-component weight.
+      prior_weight: prior-component weight, a scalar or f32[B].
       out_cap: component capacity of the result (``<= N + 1``).
 
     Returns ``(weights, mus, sigmas)``, each f32[B, out_cap], sorted
@@ -56,8 +58,11 @@ def fit_parzen(x, w, n_obs, prior_mu, prior_sigma, prior_weight, out_cap):
     prior_mu = torch.as_tensor(prior_mu, dtype=dt, device=dev)
     prior_sigma = torch.as_tensor(prior_sigma, dtype=dt, device=dev)
     xs = torch.cat([x.to(dt), prior_mu[:, None]], dim=1)
-    ws = torch.cat([w.to(dt), torch.full((b, 1), float(prior_weight),
-                                         dtype=dt, device=dev)], dim=1)
+    if isinstance(prior_weight, torch.Tensor):
+        pw = prior_weight.to(dt).reshape(b, 1)
+    else:
+        pw = torch.full((b, 1), float(prior_weight), dtype=dt, device=dev)
+    ws = torch.cat([w.to(dt), pw], dim=1)
     is_prior = torch.zeros((b, n + 1), dtype=torch.bool, device=dev)
     is_prior[:, n] = True
 
@@ -89,7 +94,7 @@ def fit_parzen(x, w, n_obs, prior_mu, prior_sigma, prior_weight, out_cap):
     sigma = torch.where(sp, psg, sigma)
 
     sw = torch.where(valid, sw, torch.zeros_like(sw))
-    sw = sw / torch.sum(sw, dim=1, keepdim=True)
+    sw = sw / tree_sum(sw, dim=1, keepdim=True)
     mus = torch.where(valid, s, torch.zeros_like(s))
     sigma = torch.where(valid, sigma, torch.ones_like(sigma))
     return sw, mus, sigma

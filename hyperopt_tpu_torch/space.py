@@ -557,28 +557,37 @@ class CompiledSpace:
         return {"uf": (n, len(self._uf)), "nf": (n, len(self._nf)),
                 "cat": (n, len(self._cat)), "wide": (n, len(self._wide))}
 
+    def draw_uniforms(self, n: int, generator=None, device=None) -> dict:
+        """The uniforms :meth:`sample` draws from ``generator`` for ``n``
+        rows, in its order: ``{family: f32[n, k]}`` for each family the
+        space has (:meth:`noise_shapes`)."""
+        dev = resolve_device(device if device is not None else self.device)
+        return {name: torch.rand(shape, generator=generator, device=dev,
+                                 dtype=torch.float32)
+                for name, shape in self.noise_shapes(int(n)).items()
+                if shape[1]}
+
     def sample(self, n: int, generator: Optional[torch.Generator] = None,
                noise: Optional[dict] = None, device=None):
         """Draw ``n`` configurations: ``(vals f32[n, P], active bool[n, P])``.
 
         The randomness is one uniform per (row, column), keyed by family as
         in :meth:`noise_shapes`; ``noise`` supplies them (tensors or arrays
-        in [0, 1)), else they are drawn from ``generator``.  Runs on
-        ``device`` (default: the space's device)."""
+        in [0, 1)), else they are drawn from ``generator``
+        (:meth:`draw_uniforms`).  Runs on ``device`` (default: the space's
+        device)."""
         n = int(n)
         dev = resolve_device(device if device is not None else self.device)
+        if noise is None:
+            noise = self.draw_uniforms(n, generator, dev)
 
         def draw(name):
             shape = self.noise_shapes(n)[name]
-            if noise is not None:
-                u = torch.as_tensor(noise[name], dtype=torch.float32,
-                                    device=dev)
-                if tuple(u.shape) != shape:
-                    raise ValueError(f"noise[{name!r}] must have shape "
-                                     f"{shape}, got {tuple(u.shape)}")
-                return u
-            return torch.rand(shape, generator=generator, device=dev,
-                              dtype=torch.float32)
+            u = torch.as_tensor(noise[name], dtype=torch.float32, device=dev)
+            if tuple(u.shape) != shape:
+                raise ValueError(f"noise[{name!r}] must have shape "
+                                 f"{shape}, got {tuple(u.shape)}")
+            return u
 
         t = self._consts(dev)
         cols = []

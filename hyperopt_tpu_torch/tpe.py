@@ -35,6 +35,12 @@ Randomness: each step's uniforms come from a ``torch.Generator`` seeded
 from the suggest seed (one per batch, consumed in step order), or are
 handed in as ``noise`` (tests give the port the uniforms the JAX step
 draws).
+
+Lanes (the fleet, ``fleet.py``): the step body takes a leading lane axis,
+one experiment per lane with its own history, generator, ``gamma`` and
+``prior_weight`` (:meth:`_TpeKernel._suggest_lanes`,
+:meth:`_TpeKernel.suggest_fleet_seeded`); the solo step is its ``L = 1``
+case, and lane ``j`` proposes bit for bit what a solo call proposes.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ import torch
 
 from . import base, history, rand
 from .history import _padded_history
-from .ops.ei_scores import ei_scores
+from .ops.ei_scores import MAX_COLUMNS, ei_scores
+from .ops.fixed_order import prefix_sum, tree_sum
 from .ops.gmm import (gmm_log_qmass, gmm_sample, icdf_pick, onehot_lookup,
                       truncate_mixture)
 from .ops.parzen import forgetting_weights
@@ -185,19 +192,23 @@ def _check_ei_args(ei_impl, ei_precision, ei_topm):
 
 
 def _insert_row(hv, ha, hl, hok, idx, row, act, loss, ok=True):
-    """Write one trial into row ``idx`` (an int64 ``[1]`` tensor on the
+    """Write trials into rows ``idx`` (an int64 ``[k]`` tensor on the
     history's device) of the padded history tensors, in place: the liar
-    scan's fantasy rows, device mode's landed trials.  ``loss`` is a 0-d
-    float32 tensor; ``ok`` True or a 0-d bool tensor.  The row index is a
-    tensor so that a replayed CUDA graph writes where the index points
-    now, not where it pointed at capture."""
-    hv.index_copy_(0, idx, row[None])
-    ha.index_copy_(0, idx, act[None])
-    hl.index_copy_(0, idx, loss.reshape(1))
+    scan's fantasy rows, device mode's landed trials.  ``row``/``act``
+    hold ``k`` rows (``[k, P]``, or ``[P]`` for one); ``loss`` is float32
+    with one value or ``k``; ``ok`` True or a bool tensor like ``loss``.
+    The fleet writes one row per lane into the lanes flattened to
+    ``[L·N, ...]``.  The row index is a tensor so that a replayed CUDA
+    graph writes where the index points now, not where it pointed at
+    capture."""
+    k = idx.shape[0]
+    hv.index_copy_(0, idx, row.reshape(k, *hv.shape[1:]))
+    ha.index_copy_(0, idx, act.reshape(k, *ha.shape[1:]))
+    hl.index_copy_(0, idx, loss.reshape(-1).expand(k))
     if ok is True:
         hok.index_fill_(0, idx, True)
     else:
-        hok.index_copy_(0, idx, ok.reshape(1))
+        hok.index_copy_(0, idx, ok.reshape(-1).expand(k))
     return hv, ha, hl, hok
 
 
@@ -280,16 +291,25 @@ class _TpeKernel:
                                  device=dev))
 
     # -- shared helpers ------------------------------------------------------
+    #
+    # Every method below takes an optional leading lane axis ``L`` on the
+    # history (``[..., N]``, ``[..., N, P]``): the fleet's experiments, one
+    # per lane, in one call.  Lanes fold into the column axis of the ops
+    # (``[L, C, ...]`` mixtures, ``[L·C, n]`` EI sheets), and every float
+    # sum runs in a fixed order (``ops/fixed_order.py``), so lane ``j``
+    # proposes the bits a solo call (no lane axis, or ``L = 1``) proposes
+    # for that experiment.
 
     def _split(self, loss, ok, gamma):
-        """γ-split by ranked loss: ``(below[N], above[N])`` bool masks.
+        """γ-split by ranked loss: ``(below[..., N], above[..., N])`` bool
+        masks.  ``gamma``: a float, or f32[L] (one per lane).
 
         Ties break by trial index; NaN losses rank with the +inf padding."""
-        n_ok = torch.sum(ok)
+        n_ok = torch.sum(ok, dim=-1)
         n_f = n_ok.to(torch.float32)
-        # gamma rounded to float32, as a scalar operand: no host→device
-        # copy per call.
-        g = float(np.float32(gamma))
+        # gamma rounded to float32; a float stays a scalar operand (no
+        # host→device copy per call).
+        g = _lane_value(gamma)
         if self.split == "sqrt":
             n_below = torch.ceil(g * torch.sqrt(n_f))
         else:
@@ -301,31 +321,33 @@ class _TpeKernel:
         # Only the k = min(lf, N) smallest losses can enter the below set.
         # A stable sort keeps the lower index first on ties, the order
         # lax.top_k gives in the JAX step.
-        k = min(self.lf, loss.shape[0])
-        idx = torch.argsort(loss, stable=True)[:k]
+        k = min(self.lf, loss.shape[-1])
+        idx = torch.argsort(loss, dim=-1, stable=True)[..., :k]
         below = torch.zeros_like(ok)
-        below[idx] = torch.arange(k, device=loss.device) < n_below
+        below.scatter_(-1, idx, torch.arange(k, device=loss.device)
+                       < n_below[..., None])
         below = below & ok
         return below, ok & ~below
 
     def _set_weights(self, set_mask, act):
         """Per-column observation weights for one split set:
-        ``(mask[N, C], weights[N, C], n_set[C])``; linear forgetting by
-        recency rank within the set, zero elsewhere."""
-        m = set_mask[:, None] & act
-        n_set = torch.sum(m, dim=0)
-        rank_in = torch.cumsum(m.to(torch.int64), dim=0) - 1
-        w = forgetting_weights(rank_in, n_set[None, :], self.lf)
+        ``(mask[..., N, C], weights[..., N, C], n_set[..., C])``; linear
+        forgetting by recency rank within the set, zero elsewhere."""
+        m = set_mask[..., None] & act
+        n_set = torch.sum(m, dim=-2)
+        rank_in = torch.cumsum(m.to(torch.int64), dim=-2) - 1
+        w = forgetting_weights(rank_in, n_set[..., None, :], self.lf)
         return m, torch.where(m, w, torch.zeros_like(w)), n_set
 
     # -- continuous columns --------------------------------------------------
 
     def _cont_fit(self, gt, vals, active, below, above, prior_weight):
         """Below/above fits for one group:
-        ``(lwb, mub, sgb, lwa, mua, sga)`` (log-weights, means, sigmas)."""
-        z = vals[:, gt.pids]
+        ``(lwb, mub, sgb, lwa, mua, sga)`` (log-weights, means, sigmas),
+        each ``[..., C, K]``."""
+        z = vals[..., gt.pids]
         z = torch.where(gt.is_log, torch.log(torch.clamp_min(z, _TINY)), z)
-        act = active[:, gt.pids]
+        act = active[..., gt.pids]
         cap_b = min(self.lf, self.n_cap) + 1
         cap_a = self.n_cap + 1
 
@@ -338,13 +360,13 @@ class _TpeKernel:
                                 cap_b, cap_a)
 
     def _cont_draw(self, gt, lwb, mub, sgb, uc, u):
-        """Candidate draws ``zc [C, n_cand]`` (fit space) from the below
-        model."""
+        """Candidate draws ``zc [..., C, n_cand]`` (fit space) from the
+        below model."""
         return gmm_sample(lwb, mub, sgb, gt.fit_lo, gt.fit_hi, uc, u)
 
     def _cont_scores(self, g, gt, vals, active, below, above, prior_weight,
                      uc, u):
-        """Candidate values + EI scores: ``([C, n_cand], [C, n_cand])``."""
+        """Candidate values + EI scores: ``([..., C, n_cand]`` twice)."""
         fits = self._cont_fit(gt, vals, active, below, above, prior_weight)
         zc = self._cont_draw(gt, *fits[:3], uc, u)
         return self._cont_ei(g, gt, zc, fits)
@@ -354,14 +376,17 @@ class _TpeKernel:
         lwb, mub, sgb, lwa, mua, sga = fits
         x_nat = torch.where(gt.is_log[:, None], torch.exp(zc), zc)
         if not g.is_q:
-            # Density columns: the CUDA kernel (plain twin on the CPU).
-            # Only the above mixture is truncated: the below one also
-            # feeds the draws.
+            # Density columns: the CUDA kernel (plain twin on the CPU), lanes
+            # folded into its column axis.  Only the above mixture is
+            # truncated: the below one also feeds the draws.
             if 0 < self.ei_topm < lwa.shape[-1]:
                 lwa, mua, sga = truncate_mixture(lwa, mua, sga, self.ei_topm)
-            return x_nat, ei_scores(zc, lwb, mub, sgb, lwa, mua, sga,
-                                    mxu=self.ei_impl == "mxu",
-                                    bf16=self.ei_precision == "bf16")
+            n = zc.shape[-1]
+            rows = [t.reshape(-1, t.shape[-1]).contiguous()
+                    for t in (zc, lwb, mub, sgb, lwa, mua, sga)]
+            ei = ei_scores(*rows, mxu=self.ei_impl == "mxu",
+                           bf16=self.ei_precision == "bf16")
+            return x_nat, ei.reshape(*zc.shape[:-1], n)
         q = gt.q[:, None]
         v = torch.round(x_nat / q) * q
         v = torch.minimum(torch.maximum(v, gt.clip_lo[:, None]),
@@ -388,45 +413,46 @@ class _TpeKernel:
             # Score each lattice point once, gather per candidate.  ei_lat
             # may hold -inf at selectable far-tail points (zero below
             # mass); the finite fill keeps "never wins" exact.
-            ei_lat = ei_q(*q_edges(gt.lat_vals))                   # [C, L]
+            ei_lat = ei_q(*q_edges(gt.lat_vals))              # [..., C, Lat]
             idx = torch.round(v / q).to(torch.int64) - gt.lat_k0[:, None]
             idx = torch.clamp(idx, 0, gt.lat_vals.shape[1] - 1)
             return v, onehot_lookup(idx, ei_lat, _NEG)
         zl, zh = q_edges(v)
-        c, n = v.shape
-        chunk = max(1, _Q_ELEMS // max(1, c * lwa.shape[-1]))
-        ei = torch.cat([ei_q(zl[:, i:i + chunk], zh[:, i:i + chunk])
-                        for i in range(0, n, chunk)], dim=1)
+        n = v.shape[-1]
+        rows = v.numel() // max(1, n)
+        chunk = max(1, _Q_ELEMS // max(1, rows * lwa.shape[-1]))
+        ei = torch.cat([ei_q(zl[..., i:i + chunk], zh[..., i:i + chunk])
+                        for i in range(0, n, chunk)], dim=-1)
         return v, ei
 
     # -- categorical columns -------------------------------------------------
 
     def _cat_scores(self, u, vals, active, below, above, prior_weight):
-        """Candidate values (offset applied) + scores: ``([D, n_cand],
-        [D, n_cand])``, candidates drawn by inverse CDF from uniforms
-        ``u [D, n_cand]``."""
+        """Candidate values (offset applied) + scores: ``([..., D, n_cand]``
+        twice), candidates drawn by inverse CDF from uniforms
+        ``u [..., D, n_cand]``."""
         ct = self._cat
-        idx = vals[:, ct.pids] - ct.offsets                 # [N, D]
-        act = active[:, ct.pids]
-        onehot = (idx[:, :, None] == ct.options).to(torch.float32)
+        idx = vals[..., ct.pids] - ct.offsets               # [..., N, D]
+        act = active[..., ct.pids]
+        onehot = (idx[..., None] == ct.options).to(torch.float32)
+        pw = _lane_value(prior_weight, 1)
 
         def log_post(set_mask):
             # Weighted counts + prior pseudocounts; prior strength
             # 'const': n_options·prior_weight (decays as 1/N), 'sqrt':
             # prior_weight·sqrt(1+N) (decays as 1/sqrt(N)).
             _, w, n_set = self._set_weights(set_mask, act)
-            counts = torch.einsum("nd,ndk->dk", w, onehot)
+            counts = tree_sum(w[..., None] * onehot, dim=-3)  # [..., D, K]
             if self.cat_prior == "const":
-                strength = prior_weight * ct.nopts
+                strength = pw * ct.nopts
             else:
-                strength = prior_weight * torch.sqrt(
-                    1.0 + n_set.to(torch.float32))
-            pseudo = counts + ct.priors * strength[:, None]
-            return torch.log(pseudo / torch.sum(pseudo, dim=1, keepdim=True))
+                strength = pw * torch.sqrt(1.0 + n_set.to(torch.float32))
+            pseudo = counts + ct.priors * strength[..., None]
+            return torch.log(pseudo / tree_sum(pseudo, dim=-1, keepdim=True))
 
         lpb = log_post(below)
         lpa = log_post(above)
-        cdf = torch.cumsum(torch.exp(lpb), dim=1)           # [D, kmax]
+        cdf = prefix_sum(torch.exp(lpb), dim=-1)            # [..., D, kmax]
         cand = icdf_pick(u, cdf, ct.last[:, None])
         # Padded options are -inf on both sides; clamping each side to a
         # finite value keeps a selectable option with zero above-mass on
@@ -438,8 +464,8 @@ class _TpeKernel:
     # -- the step ------------------------------------------------------------
 
     def draw_noise(self, generator=None):
-        """The step's uniforms: ``{"cont": [(uc, u) per group],
-        "cat": u}`` with ``[C, n_cand]`` / ``[D, n_cand]`` shapes."""
+        """One lane's uniforms: ``{"cont": [(uc, u) per group], "cat":
+        u}`` with ``[C, n_cand]`` / ``[D, n_cand]`` shapes."""
 
         def r(rows):
             return torch.rand((rows, self.n_cand), generator=generator,
@@ -448,21 +474,48 @@ class _TpeKernel:
         return {"cont": [(r(len(g)), r(len(g))) for g in self.groups],
                 "cat": r(len(self.cat_pids))}
 
-    def _suggest_one_tel(self, vals, active, loss, ok, gamma, prior_weight,
-                         generator=None, noise=None):
-        """One proposal: ``(row[P], act[P], ei_best, ei_ties)``.
+    def max_lanes(self):
+        """The most lanes one step takes: the EI kernel's column axis
+        (``grid.y``) holds 65,535 columns, and a lane brings the widest
+        density group's columns.  None when no group reaches the kernel."""
+        widths = [len(g) for g in self.groups if not g.is_q]
+        return MAX_COLUMNS // max(widths) if widths else None
 
-        ``vals/active/loss/ok`` are the padded history on this kernel's
-        device.  ``ei_best`` is the winning EI score across the sheets and
-        ``ei_ties`` counts candidates tying their sheet's winner."""
+    def check_lanes(self, n_lanes):
+        """Raise ``ValueError`` unless one step can take ``n_lanes`` lanes
+        (:meth:`max_lanes`)."""
+        cap = self.max_lanes()
+        if cap is not None and int(n_lanes) > cap:
+            width = max(len(g) for g in self.groups if not g.is_q)
+            raise ValueError(
+                f"{n_lanes} lanes x {width} density columns exceed the EI "
+                f"kernel's {MAX_COLUMNS} columns: this space takes at "
+                f"most {cap} lanes")
+
+    def _suggest_lanes(self, vals, active, loss, ok, gamma, prior_weight,
+                       generators=None, noise=None):
+        """One proposal per lane: ``(row[L, P], act[L, P], ei_best[L],
+        ei_ties[L])``.
+
+        ``vals/active`` are ``[L, N, P]`` and ``loss/ok`` ``[L, N]``, the
+        padded histories on this kernel's device; ``gamma`` and
+        ``prior_weight`` floats or f32[L].  Lane ``j`` draws its uniforms
+        from ``generators[j]``, or takes them from ``noise`` (the
+        :meth:`draw_noise` layout with a leading lane axis,
+        :func:`stack_noise`).  ``ei_best`` is the winning EI score across
+        the sheets and ``ei_ties`` counts candidates tying their sheet's
+        winner."""
+        n_lanes = loss.shape[0]
         if noise is None:
-            noise = self.draw_noise(generator)
+            gens = generators if generators is not None else [None] * n_lanes
+            noise = stack_noise([self.draw_noise(g) for g in gens])
         below, above = self._split(loss, ok, gamma)
-        row = torch.zeros((self.cs.n_params,), dtype=torch.float32,
-                          device=self.device)
-        ei_best = torch.full((), -math.inf, dtype=torch.float32,
-                             device=self.device)
-        ei_ties = torch.zeros((), dtype=torch.int32, device=self.device)
+        dev = self.device
+        row = torch.zeros((n_lanes, self.cs.n_params), dtype=torch.float32,
+                          device=dev)
+        ei_best = torch.full((n_lanes,), -math.inf, dtype=torch.float32,
+                             device=dev)
+        ei_ties = torch.zeros((n_lanes,), dtype=torch.int64, device=dev)
         cols = []
         for g, gt, (uc, u) in zip(self.groups, self._gt, noise["cont"]):
             v, ei = self._cont_scores(g, gt, vals, active, below, above,
@@ -474,11 +527,22 @@ class _TpeKernel:
             cols.append((self._cat.pids, cv, score))
         for pids, v, ei in cols:
             bi, best, ties = ei_argmax_stats(ei)
-            row[pids] = torch.gather(v, 1, bi[:, None])[:, 0]
-            ei_best = torch.maximum(ei_best, torch.max(best))
-            ei_ties = ei_ties + torch.sum(ties)
-        act_row = self.cs.active_mask(row[None, :])[0]
+            row[:, pids] = torch.gather(v, -1, bi[..., None])[..., 0]
+            ei_best = torch.maximum(ei_best, torch.amax(best, dim=-1))
+            ei_ties = ei_ties + torch.sum(ties, dim=-1)
+        act_row = self.cs.active_mask(row)
         return row, act_row, ei_best, ei_ties
+
+    def _suggest_one_tel(self, vals, active, loss, ok, gamma, prior_weight,
+                         generator=None, noise=None):
+        """One proposal: ``(row[P], act[P], ei_best, ei_ties)``, the
+        ``L = 1`` case of :meth:`_suggest_lanes` (``vals/active/loss/ok``
+        the padded history without a lane axis)."""
+        out = self._suggest_lanes(
+            vals[None], active[None], loss[None], ok[None], gamma,
+            prior_weight, generators=[generator],
+            noise=None if noise is None else stack_noise([noise]))
+        return tuple(t[0] for t in out)
 
     def __call__(self, vals, active, loss, ok, gamma, prior_weight,
                  generator=None, noise=None):
@@ -486,43 +550,140 @@ class _TpeKernel:
             vals, active, loss, ok, gamma, prior_weight, generator, noise)
         return row, act_row
 
-    def _liar_scan(self, m, n_rows, vals, active, loss, ok, gamma,
-                   prior_weight, generator=None, noises=None):
-        """``m`` proposals with constant-liar fantasy refits:
-        ``(rows[m, P], acts[m, P])`` on the device.
+    def _liar_lanes(self, m, n_rows, vals, active, loss, ok, gamma,
+                    prior_weight, generators=None, noises=None):
+        """``m`` proposals per lane with constant-liar fantasy refits:
+        ``(rows[L, m, P], acts[L, m, P])`` on the device.
 
         Independent EI-argmax draws from one posterior collapse onto the
         same peak.  Constant liar (Ginsbourger): after each proposal,
-        insert it at row ``n_rows + i`` of a copy of the history with a
-        fantasy loss, the mean of the observed ``ok`` losses, which ranks
-        it into the above set and repels the next proposal; refit and
-        propose again.  Step ``i`` draws its uniforms from ``generator``
-        (in step order) or takes ``noises[i]``."""
+        insert it at row ``n_rows[j] + i`` of a copy of lane ``j``'s
+        history with a fantasy loss, the mean of its observed ``ok``
+        losses, which ranks it into the above set and repels the next
+        proposal; refit and propose again.  ``n_rows``: int64[L] on the
+        device.  Step ``i`` draws lane ``j``'s uniforms from
+        ``generators[j]`` (in step order) or takes ``noises[i]`` (lane
+        axis leading)."""
         if noises is not None and len(noises) != m:
             raise ValueError(f"{len(noises)} noise dicts for {m} steps")
-        n_ok = torch.clamp_min(torch.sum(ok), 1).to(torch.float32)
-        lie = torch.sum(torch.where(ok, loss, torch.zeros_like(loss))) / n_ok
-        hist = [t.clone() for t in (vals, active, loss, ok)]
-        at = torch.full((1,), n_rows, dtype=torch.int64, device=loss.device)
+        n_lanes, n = loss.shape
+        n_ok = torch.clamp_min(torch.sum(ok, dim=-1), 1).to(torch.float32)
+        lie = tree_sum(torch.where(ok, loss, torch.zeros_like(loss)),
+                       dim=-1) / n_ok
+        hist = [t.clone(memory_format=torch.contiguous_format)
+                for t in (vals, active, loss, ok)]
+        flat = [t.view(n_lanes * n, *t.shape[2:]) for t in hist]
+        at = n_rows + torch.arange(n_lanes, device=loss.device) * n
         rows, acts = [], []
         for i in range(m):
-            row, act = self(*hist, gamma, prior_weight, generator=generator,
-                            noise=None if noises is None else noises[i])
-            _insert_row(*hist, at, row, act, lie)
-            at += 1
+            row, act, _, _ = self._suggest_lanes(
+                *hist, gamma, prior_weight, generators,
+                None if noises is None else noises[i])
+            _insert_row(*flat, at, row, act, lie)
+            at = at + 1
             rows.append(row)
             acts.append(act)
-        return torch.stack(rows), torch.stack(acts)
+        return torch.stack(rows, dim=1), torch.stack(acts, dim=1)
+
+    def _liar_scan(self, m, n_rows, vals, active, loss, ok, gamma,
+                   prior_weight, generator=None, noises=None):
+        """``m`` constant-liar proposals for one history: ``(rows[m, P],
+        acts[m, P])``, the ``L = 1`` case of :meth:`_liar_lanes`; step
+        ``i`` draws from ``generator`` or takes ``noises[i]``."""
+        at = torch.full((1,), n_rows, dtype=torch.int64, device=loss.device)
+        rows, acts = self._liar_lanes(
+            m, at, vals[None], active[None], loss[None], ok[None], gamma,
+            prior_weight, generators=[generator],
+            noises=None if noises is None
+            else [stack_noise([nz]) for nz in noises])
+        return rows[0], acts[0]
 
     def suggest_many(self, m, n_rows, vals, active, loss, ok, gamma,
                      prior_weight, generator=None, noises=None):
-        """``m`` constant-liar proposals (see :meth:`_liar_scan`); the
+        """``m`` constant-liar proposals (see :meth:`_liar_lanes`); the
         bucket must hold the ``n_rows`` history rows and ``m`` more."""
         if n_rows + m > self.n_cap:
             raise ValueError(f"{n_rows} rows + {m} fantasies do not fit the "
                              f"bucket of {self.n_cap}")
         return self._liar_scan(m, n_rows, vals, active, loss, ok, gamma,
                                prior_weight, generator, noises)
+
+    def suggest_fleet_seeded(self, seeds, m, n_rows, hv, ha, hl, hok, gamma,
+                             prior_weight, noises=None):
+        """Cohort suggest: ``(rows[B, m, P], acts[B, m, P])`` on the device
+        from stacked ``[B, n_cap, ...]`` history lanes, per-lane integer
+        seeds and insertion cursors ``n_rows[B]``.  ``gamma`` and
+        ``prior_weight`` are floats or one per lane.
+
+        Lane ``j`` proposes what a solo call proposes for that history
+        under ``seeds[j]``: one step (``m == 1``) as :meth:`__call__`, else
+        the liar scan of :meth:`suggest_many`, its uniforms drawn from a
+        generator seeded with ``seeds[j] % 2**32`` (as
+        ``suggest_dispatch``), or taken from ``noises[j]`` (a list of
+        ``m`` :meth:`draw_noise` dicts)."""
+        b = len(seeds)
+        self.check_lanes(b)
+        n_rows = [int(r) for r in n_rows]
+        if len(n_rows) != b:
+            raise ValueError(f"{len(n_rows)} cursors for {b} lanes")
+        if m > 1 and max(n_rows) + m > self.n_cap:
+            raise ValueError(f"{max(n_rows)} rows + {m} fantasies do not fit "
+                             f"the bucket of {self.n_cap}")
+        gamma = _lane_param(gamma, b, self.device)
+        prior_weight = _lane_param(prior_weight, b, self.device)
+        if noises is not None:
+            if len(noises) != b or any(len(nz) != m for nz in noises):
+                raise ValueError(f"noises must hold {m} dicts for each of "
+                                 f"{b} lanes")
+            steps = [stack_noise([nz[i] for nz in noises]) for i in range(m)]
+            gens = None
+        else:
+            steps = None
+            gens = [make_generator(self.device, int(s) % (2 ** 32))
+                    for s in seeds]
+        if m == 1:
+            rows, acts, _, _ = self._suggest_lanes(
+                hv, ha, hl, hok, gamma, prior_weight, gens,
+                None if steps is None else steps[0])
+            return rows[:, None], acts[:, None]
+        at = torch.as_tensor(n_rows, dtype=torch.int64, device=self.device)
+        return self._liar_lanes(m, at, hv, ha, hl, hok, gamma, prior_weight,
+                                gens, steps)
+
+
+def stack_noise(noises):
+    """Per-lane :meth:`_TpeKernel.draw_noise` dicts as one dict with a
+    leading lane axis (a view for one lane)."""
+    if len(noises) == 1:
+        (nz,) = noises
+        return {"cont": [(uc[None], u[None]) for uc, u in nz["cont"]],
+                "cat": nz["cat"][None]}
+    return {"cont": [(torch.stack([nz["cont"][k][0] for nz in noises]),
+                      torch.stack([nz["cont"][k][1] for nz in noises]))
+                     for k in range(len(noises[0]["cont"]))],
+            "cat": torch.stack([nz["cat"] for nz in noises])}
+
+
+def _lane_value(x, trailing=0):
+    """A per-lane parameter as an operand: a float rounded to float32 (a
+    scalar, no host→device copy), or an f32[L] tensor with ``trailing``
+    axes of size 1 appended for broadcasting."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).reshape(x.shape + (1,) * trailing)
+    return float(np.float32(x))
+
+
+def _lane_param(x, n_lanes, device):
+    """``gamma``/``prior_weight`` for ``n_lanes`` lanes: a float when every
+    lane has the same value, else f32[L] on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    a = np.asarray(x, np.float32).reshape(-1)
+    if a.size == 1 or (a == a[0]).all():
+        return float(a[0])
+    if a.size != n_lanes:
+        raise ValueError(f"{a.size} values for {n_lanes} lanes")
+    return torch.as_tensor(a, device=device)
 
 
 def _bucket(n: int) -> int:

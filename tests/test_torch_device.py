@@ -2,7 +2,8 @@
 and ``fmin_device``, on the CPU, where the captured step runs eagerly.
 
 Mirrors ``tests/test_fmin_device_mode.py`` and ``tests/test_device.py``
-(without their mesh and ``n_runs`` cases), held against the port's own
+(without their mesh cases; the ``n_runs`` ones are in
+``tests/test_torch_fleet.py``), held against the port's own
 hosted loop, plus one test against the JAX package:
 
 * Stride-1 bit-parity with the hosted ``fmin`` on three domains: the
@@ -15,6 +16,9 @@ hosted loop, plus one test against the JAX package:
 * The JAX package's device mode and the port's segment, handed the
   uniforms of JAX's per-trial keys, land equal rows and losses.
 * The step is capture-safe: no host round trip while it runs.
+
+The card half, a capture that fails with the objective contract, is
+``tests_torch_cuda/test_torch_cuda_device.py``.
 """
 
 import contextlib
@@ -315,10 +319,9 @@ def test_max_evals_required():
 
 
 def test_fleet_options_not_ported():
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        ht.fmin_device(quad_dev, SPACE_QUAD, max_evals=8, n_runs=2,
-                       device=CPU)
-    with pytest.raises(NotImplementedError, match="fleet slice"):
+    """``mesh=`` waits for the dispatch slice; ``n_runs > 1`` is ported
+    (``tests/test_torch_fleet.py``)."""
+    with pytest.raises(NotImplementedError, match="dispatch slice"):
         ht.fmin_device(quad_dev, SPACE_QUAD, max_evals=8, mesh=object(),
                        device=CPU)
 
@@ -622,7 +625,8 @@ def test_segment_matches_jax_device_mode():
         seg.load(h["vals"], h["active"], h["loss"], h["ok"], h["loss"],
                  limit=N)
         seg.run(seeds, noises=noises)
-        return seg.fetch(24, N)
+        (vals, active, losses, n_done), = zip(*seg.fetch(24, N))
+        return vals, active, losses, n_done
 
     vals, active, losses, n_done = port_segment(
         [_jax_step_uniforms(prng_key(np.uint32(s)), kj) for s in seeds])
@@ -705,9 +709,9 @@ def test_steps_make_no_host_round_trip(space_fn, lowering):
     with _no_host_round_trips():
         seg._step()
     assert int(seg.i) == 41
-    assert bool(seg.hok[40]) and math.isfinite(float(seg.hl[40]))
+    assert bool(seg.hok[0, 40]) and math.isfinite(float(seg.hl[0, 40]))
     # The hosted step.
-    hist = [b[:n_cap] for b in (seg.hv, seg.ha, seg.hl, seg.hok)]
+    hist = [b[0, :n_cap] for b in (seg.hv, seg.ha, seg.hl, seg.hok)]
     with _no_host_round_trips():
         row, _, _, _ = kern._suggest_one_tel(
             *hist, 0.25, 1.0, generator=torch.Generator().manual_seed(1))
@@ -724,16 +728,3 @@ def test_round_trip_guard_catches_a_host_read():
                                                match="Tensor.item"):
         seg._step()
 
-
-@pytest.mark.cuda
-def test_capture_failure_names_the_contract():
-    """On the card an objective that reads a value back breaks the capture
-    and raises CaptureError with the objective contract; nothing runs on
-    eagerly."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (device mode captures CUDA graphs)")
-    with pytest.raises(device.CaptureError, match="no .item()"):
-        ht.fmin(lambda p: p["x"] * float(p["x"].item()), SPACE_QUAD,
-                algo=tpe.suggest, max_evals=8, trials=ht.Trials(),
-                rstate=np.random.default_rng(0), show_progressbar=False,
-                mode="device")

@@ -5,9 +5,9 @@ package's Pallas kernel run in interpret mode and against the XLA
 ``gmm_logpdf`` difference (plus the truncation normalizers the kernel
 leaves out), at the tolerance of ``tests/test_pallas.py`` (rtol/atol
 2e-4), with identical argmax.  The CUDA kernels themselves (f32, bf16 and
-tensor-core lowerings) run only on the card: their test is marked ``cuda``
-and skips elsewhere; ``chip_smoke.py`` holds them against their plain
-versions at the TPE step's full shape."""
+tensor-core lowerings) run only on the card: their test is
+``tests_torch_cuda/test_torch_cuda_ei_scores.py``, and ``chip_smoke.py``
+holds them against their plain versions at the TPE step's full shape."""
 
 import jax
 import jax.numpy as jnp
@@ -143,23 +143,3 @@ def test_cuda_tensor_never_falls_back(monkeypatch, available, tmp_path):
     assert ei_mod.ei_scores.launches == launches
     assert ei_mod.ei_scores.launches_by == by
 
-
-@pytest.mark.cuda
-def test_kernel_matches_reference_on_card():
-    """Each lowering's kernel against its plain version on the card: 2e-4
-    for f32 and bf16, and for the tensor-core form the JAX package's
-    tolerance of mxu against vpu, 2e-3."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
-    z, below, above = _case(31, 3000, 26, 1025)
-    t = [torch.as_tensor(a, device="cuda") for a in (z, *below, *above)]
-    for low, kw, tol in (("f32", {}, 2e-4), ("bf16", {"bf16": True}, 2e-4),
-                         ("mxu", {"mxu": True}, 2e-3)):
-        launches = ei_mod.ei_scores.launches
-        by = ei_mod.ei_scores.launches_by[low]
-        got = ei_mod.ei_scores(*t, **kw)
-        torch.cuda.synchronize()
-        assert ei_mod.ei_scores.launches == launches + 1
-        assert ei_mod.ei_scores.launches_by[low] == by + 1
-        want = ei_mod.ei_scores_reference(*t, **kw)
-        torch.testing.assert_close(got, want, rtol=tol, atol=tol)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and ``chip_smoke.py`` neither."""
+package, and ``chip_smoke.py`` and the card's tests (``tests_torch_cuda/``)
+neither."""
 
 import ast
 import os
@@ -11,6 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "hyperopt_tpu_torch").rglob("*.py")) \
+    + sorted((ROOT / "tests_torch_cuda").glob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "chip_ei_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "hyperopt_tpu")
 
@@ -39,7 +41,10 @@ def test_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import hyperopt_tpu_torch, hyperopt_tpu_torch.convert, chip_smoke\n"
         "import hyperopt_tpu_torch.ops.ei_scores, hyperopt_tpu_torch.history\n"
-        "import hyperopt_tpu_torch.device\n"
+        "import hyperopt_tpu_torch.device, hyperopt_tpu_torch.fleet\n"
+        "sys.path.insert(0, 'tests_torch_cuda')\n"
+        "import conftest, test_torch_cuda_device, test_torch_cuda_ei_scores\n"
+        "import test_torch_cuda_fleet\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hyperopt_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
