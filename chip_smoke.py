@@ -72,7 +72,22 @@ Phases, each fatal on failure:
                ``CohortScheduler`` serves 8 experiments in one dispatch
                with one launch of the picked kernel, each row equal to the
                experiment's solo ``tpe.suggest``.
-8. card_tests  ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
+8. obs         the observability layer at the same width (1,000 trials
+               from empty, bucket 1,024): (a) solo device mode with the
+               telemetry slab armed and disarmed at strides None and 8:
+               identical trials and fetch counts, the slab's TPE steps
+               (980) and best loss against the trials', card ms per replay
+               (CUDA events, in turns) and kernels per replay (profiler)
+               for each arm; (b) ``fmin_fleet`` at 8 lanes, armed: the
+               slabs of lanes 0 and 7 equal their solo runs' slabs bit for
+               bit; (c) a hosted ``fmin(trace_dir=)`` from the 1,000-trial
+               history, 20 TPE steps: the three host artifacts and the
+               profiler's export, which names the EI kernel once per TPE
+               step; (d) the hosted step with the obs layer armed (metrics,
+               events, cost ledger) and disarmed: host ms per step over
+               the same steps, in turns, and the hooks' own time by
+               cProfile.
+9. card_tests  ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
                and every collected test passed.
 
 Prints the card's name and power limit first, one ``{"kernels": [...]}``
@@ -84,11 +99,15 @@ there is no CUDA device or the package is missing.
 from __future__ import annotations
 
 import copy
+import cProfile
 import json
 import math
 import os
+import pstats
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from xml.etree import ElementTree
@@ -101,6 +120,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import hyperopt_tpu_torch as ho  # noqa: E402
 from hyperopt_tpu_torch import (  # noqa: E402
     base, device, fleet, history, hp, tpe)
+from hyperopt_tpu_torch.obs import costs, devtel, metrics  # noqa: E402
+from hyperopt_tpu_torch.obs import trace as obs_trace  # noqa: E402
+from hyperopt_tpu_torch.obs.events import EVENTS  # noqa: E402
 from hyperopt_tpu_torch.ops import ei_scores as ei_mod  # noqa: E402
 from hyperopt_tpu_torch.space import (  # noqa: E402
     CATEGORICAL, LOGNORMAL, LOGUNIFORM, NORMAL, QLOGNORMAL, QNORMAL,
@@ -162,6 +184,11 @@ FLEET_THROUGHPUT_LANES = (1, 8, 64)
 FLEET_THROUGHPUT_RUN = 1000
 FLEET_KERNEL_LANES = (8, 64)
 COHORT = 8
+# obs: trials per run from empty (a, b), the fleet's lanes (b), and the
+# lanes whose slabs are held against their solo runs.
+OBS_RUN = 1000
+OBS_LANES = 8
+OBS_SOLO_LANES = (0, OBS_LANES - 1)
 # Kernel symbol of each lowering, as the profiler names it.
 KERNEL_SYMBOLS = {"f32": "ei_scores_kernel<false>",
                   "bf16": "ei_scores_kernel<true>",
@@ -844,12 +871,13 @@ def host_split_ms(seg, h, rows):
     return (seed_s * 1e3 / DEVICE_PROFILED, replay_s * 1e3 / DEVICE_PROFILED)
 
 
-def segment_of(cs, fn, n_cap, lanes=1):
+def segment_of(cs, fn, n_cap, lanes=1, telemetry=True):
     """The cached device-mode segment of objective ``fn`` at bucket
-    ``n_cap`` with ``lanes`` lanes (built by an ``fmin(mode="device")``,
-    ``fmin_device`` or ``fmin_fleet`` run)."""
+    ``n_cap`` with ``lanes`` lanes, armed or not (built by an
+    ``fmin(mode="device")``, ``fmin_device`` or ``fmin_fleet`` run)."""
     return next(seg for f, seg in cs._device_runs.values()
-                if f is fn and seg.n_cap == n_cap and seg.n_lanes == lanes)
+                if f is fn and seg.n_cap == n_cap and seg.n_lanes == lanes
+                and seg.telemetry == telemetry)
 
 
 def phase_device_mode(dev, hosted):
@@ -1210,7 +1238,7 @@ def phase_fleet(dev, solo_rates):
                     tpe._default_gamma, tpe._default_prior_weight,
                     tpe._default_linear_forgetting, "sqrt", "sqrt",
                     tpe_kw["ei_impl"], tpe_kw["ei_precision"], 0,
-                    n_lanes=lanes))
+                    n_lanes=lanes, telemetry=devtel.enabled()))
                 check_captures(f"fleet (c) {low} {lanes} lanes", low)
             load(seg, h, n)
             wall_ms, kernels = counted(low, lambda: profiled(
@@ -1302,6 +1330,269 @@ def phase_fleet(dev, solo_rates):
     return tally.rows(), kernel_times
 
 
+class slabs_seen:
+    """Within the block, record each ``(mode, slab)`` that device mode hands
+    ``devtel.backfill_segment``."""
+
+    def __enter__(self):
+        self.seen = []
+        self._orig = orig = devtel.backfill_segment
+
+        def spy(reg, **kw):
+            self.seen.append((kw["mode"], kw["slab_h"]))
+            return orig(reg, **kw)
+
+        devtel.backfill_segment = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        devtel.backfill_segment = self._orig
+        return False
+
+
+def slabs_equal(a, b, j):
+    """Whether lane ``j`` of slab ``a`` equals the one-lane slab ``b``, bit
+    for bit."""
+    return all(np.array_equal(a[k][j], b[k][0]) for k in a)
+
+
+def obs_device_runs(dev, space, cs, algo, obj, counted):
+    """(a): solo device mode armed and disarmed at strides None and 8.
+    Returns the armed stride-None run's ``(trials, slabs)``."""
+    n = OBS_RUN
+    n_startup = tpe._default_n_startup_jobs
+    runs = {}
+    for stride in (None, 8):
+        for armed in (True, False):
+            devtel.set_enabled(armed)
+            with slabs_seen() as seen:
+                t0 = time.perf_counter()
+                t = counted("f32", lambda: device_fmin(
+                    obj, space, algo, ho.Trials(), n, stride, dev, 12))
+                wall = time.perf_counter() - t0
+            fetches = -(-n // (stride or n))
+            arm = "armed" if armed else "disarmed"
+            check_counters(f"obs (a) stride {stride} {arm}",
+                           captures=int(stride is None), replays=n,
+                           eager_steps=0, fetch_syncs=fetches,
+                           segments=fetches)
+            check_captures(f"obs (a) stride {stride} {arm}", "f32")
+            slabs = [sl for mode, sl in seen if mode == "solo"]
+            if len(slabs) != (fetches if armed else 0):
+                fail(f"obs (a) stride {stride} {arm}: {len(slabs)} slabs "
+                     f"for {fetches} segments")
+            runs[(stride, armed)] = (t, slabs)
+            print(f"obs (a): stride {stride} {arm}: {n} trials in "
+                  f"{wall:.3f} s = {n / wall:.1f} trials/s"
+                  + (" (capture included)" if stride is None else "")
+                  + f", {fetches} fetches")
+        (ta, slabs), (td, _) = runs[(stride, True)], runs[(stride, False)]
+        diffs = column_diffs(landed(ta, 0), landed(td, 0))
+        if diffs or len(ta) != n or len(td) != n:
+            fail(f"obs (a) stride {stride}: armed and disarmed runs land "
+                 f"different trials: {diffs}")
+        losses = np.asarray([d["result"]["loss"] for d in ta], np.float32)
+        n_tpe = sum(int(sl["tpe_steps"][0]) for sl in slabs)
+        best = slabs[-1]["best_loss"][0]
+        if n_tpe != n - n_startup or best != losses.min():
+            fail(f"obs (a) stride {stride}: slab tpe_steps {n_tpe} (wanted "
+                 f"{n - n_startup}), best {best} (the trials' {losses.min()})")
+        ei_sum = sum(float(sl["ei_sum"][0]) for sl in slabs)
+        print(f"obs (a): stride {stride}: armed and disarmed land identical "
+              f"trials (misc.vals and losses) with equal fetches; slab: "
+              f"tpe_steps={n_tpe} best_loss={best:.6g} (the trials' best) "
+              f"ei_max={max(float(sl['ei_max'][0]) for sl in slabs):.6g} "
+              f"ei_mean={ei_sum / n_tpe:.6g} argmax_ties="
+              f"{sum(int(sl['argmax_ties'][0]) for sl in slabs)} "
+              f"nonfinite={sum(int(sl['nonfinite'][0]) for sl in slabs)}")
+    devtel.set_enabled(True)
+    # The card's time and kernels per replay of each arm's graph, after
+    # 1,000 rows, in turns.
+    ta = runs[(None, True)][0]
+    h = ta.history(cs)
+    segs = {arm: segment_of(cs, obj, tpe._bucket(n), telemetry=arm)
+            for arm in (True, False)}
+    card = {True: [], False: []}
+    for arm in (False, True, True, False):
+        enqueue_ms, card_ms = counted("f32",
+                                      lambda: replay_ms(segs[arm], h, n))
+        check_counters("obs (a) timed segment", replays=DEVICE_PROFILED,
+                       captures=0)
+        card[arm].append((card_ms, enqueue_ms))
+    per_replay = {}
+    for arm in (False, True):
+        load(segs[arm], h, n)
+        wall_ms, kernels = counted("f32", lambda: profiled(
+            lambda: segs[arm].run(replay_seeds(segs[arm]))))
+        seen = kernel_counts(kernels)
+        if seen != {k: DEVICE_PROFILED * (k == "f32") for k in seen}:
+            fail(f"obs (a): the profiler counted {seen} EI kernel runs in "
+                 f"{DEVICE_PROFILED} replays")
+        per_replay[arm] = sum(c for _, c, _ in kernels) / DEVICE_PROFILED
+        busy = sum(m for _, _, m in kernels) / DEVICE_PROFILED
+        print(f"obs (a): {'armed' if arm else 'disarmed'} graph: card ms per "
+              f"replay {', '.join(f'{c:.4f}' for c, _ in card[arm])} (CUDA "
+              f"events, turns disarmed, armed, armed, disarmed), host "
+              f"enqueue ms per replay "
+              f"{', '.join(f'{e:.4f}' for _, e in card[arm])}; profiled: "
+              f"cuda_kernels_per_replay={per_replay[arm]:.2f} "
+              f"device_busy_ms_per_replay={busy:.4f}; pool "
+              f"{segs[arm].pool_bytes} bytes")
+    extra = per_replay[True] - per_replay[False]
+    if not 0 <= extra <= 4:
+        fail(f"obs (a): the armed graph runs {extra:.2f} more kernels per "
+             f"replay than the disarmed one (at most 4)")
+    print(f"obs (a): the slab adds {extra:.2f} kernels per replay")
+    return runs[(None, True)]
+
+
+def phase_obs(dev):
+    """The observability layer at full width, checks (a) to (d).  Returns
+    ``{lowering: (eager launches, launches recorded into graphs, replays
+    of graphs that hold the kernel)}`` over its runs."""
+    space = flagship_space()
+    cs = compile_space(space)
+    algo = partial(tpe.suggest, n_EI_candidates=N_CAND)
+    t_phase = time.perf_counter()
+    tally = Tally()
+    counted = tally.counted
+    obj = make_objective_torch()
+    solo_t, solo_slabs = obs_device_runs(dev, space, cs, algo, obj, counted)
+
+    # (b) the fleet at 8 lanes, armed: lanes 0 and 7 against their solo
+    # runs (seed 12 + j; lane 0's is (a)'s armed stride-None run).
+    n = OBS_RUN
+    with slabs_seen() as seen:
+        infos = counted("f32", lambda: fleet.fmin_fleet(
+            obj, cs, OBS_LANES, n, seed=12, device=dev,
+            n_EI_candidates=N_CAND))
+    check_counters("obs (b) fleet", captures=1, replays=n, eager_steps=0,
+                   fetch_syncs=1)
+    fleet_slabs = [sl for mode, sl in seen if mode == "fleet"]
+    for j in OBS_SOLO_LANES:
+        if j == 0:
+            t, slabs = solo_t, solo_slabs
+        else:
+            with slabs_seen() as seen:
+                t = counted("f32", lambda: device_fmin(
+                    obj, space, algo, ho.Trials(), n, None, dev, 12 + j))
+            slabs = [sl for mode, sl in seen if mode == "solo"]
+        losses = np.asarray([d["result"]["loss"] for d in t], np.float32)
+        if len(slabs) != len(fleet_slabs) or not all(
+                slabs_equal(f, o, j) for f, o in zip(fleet_slabs, slabs)) \
+                or not np.array_equal(infos[j]["losses"], losses):
+            fail(f"obs (b): lane {j} of {OBS_LANES}: its slab or trials "
+                 f"differ from its solo run's")
+        tel = infos[j]["telemetry"]
+        print(f"obs (b): fmin_fleet lane {j} of {OBS_LANES}: slab equals "
+              f"the solo run's bit for bit (tpe_steps={tel['tpe_steps']} "
+              f"best_loss={tel['best_loss']:.6g} "
+              f"ei_max={tel['ei_max']:.6g})")
+
+    # (c) a hosted fmin(trace_dir=): the torch.profiler export names the
+    # EI kernel once per TPE step.
+    trials = synthetic_trials(cs, N_HISTORY, 1, dev)
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        t0 = time.perf_counter()
+        counted("f32", lambda: ho.fmin(
+            objective, space, algo=algo, max_evals=N_HISTORY + N_MORE,
+            trials=trials, rstate=np.random.default_rng(0), device=dev,
+            show_progressbar=False, trace_dir=trace_dir))
+        wall = time.perf_counter() - t0
+        files = sorted(os.listdir(trace_dir))
+        want = ["chrome_trace.json", "loop_events.jsonl", "loop_trace.json",
+                obs_trace.PROFILER_TRACE]
+        if files != sorted(want):
+            fail(f"obs (c): trace dir holds {files}, wanted {want}")
+        with open(os.path.join(trace_dir, obs_trace.PROFILER_TRACE)) as fh:
+            prof = json.load(fh)["traceEvents"]
+        gpu = [e for e in prof if e.get("cat") == "kernel"]
+        runs = {low: sum(sym in e.get("name", "") for e in gpu)
+                for low, sym in KERNEL_SYMBOLS.items()}
+        if runs != {k: N_MORE * (k == "f32") for k in runs}:
+            fail(f"obs (c): the profiler export names the EI kernels "
+                 f"{runs} times for {N_MORE} TPE steps")
+        types = {}
+        with open(os.path.join(trace_dir, "loop_events.jsonl")) as fh:
+            for line in fh:
+                etype = json.loads(line)["type"]
+                types[etype] = types.get(etype, 0) + 1
+        with open(os.path.join(trace_dir, "loop_trace.json")) as fh:
+            spans = json.load(fh)
+        size = os.path.getsize(os.path.join(trace_dir,
+                                            obs_trace.PROFILER_TRACE))
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    print(f"obs (c): fmin(trace_dir=) from {N_HISTORY} trials, {N_MORE} "
+          f"TPE steps in {wall:.3f} s (profiler start and export "
+          f"included): the export ({size} bytes, {len(gpu)} kernel events) "
+          f"names {KERNEL_SYMBOLS['f32']} {runs['f32']} times, once per "
+          f"step; events {dict(sorted(types.items()))}; spans "
+          + ", ".join(f"{k} {v['count']}x {v['mean_ms']} ms"
+                      for k, v in spans.items() if k != "_wall")
+          + f"; coverage {spans['_wall']['coverage']}")
+
+    # (d) the hosted step with the obs layer armed and disarmed, the same
+    # 20 steps each time, in turns after a warm-up run (the host's noise
+    # between runs is milliseconds); then the hooks' own time in one more
+    # armed run, by cProfile.
+    history0 = synthetic_trials(cs, N_HISTORY, 3, dev)
+
+    def hosted(armed, prof=None):
+        metrics.set_enabled(armed)
+        (costs.arm if armed else costs.disarm)()
+        (EVENTS.enable if armed else EVENTS.disable)()
+        t = base.trials_from_docs(copy.deepcopy(list(history0)))
+        try:
+            t0 = time.perf_counter()
+            if prof is not None:
+                prof.enable()
+            counted("f32", lambda: ho.fmin(
+                objective, space, algo=algo, max_evals=N_HISTORY + N_MORE,
+                trials=t, rstate=np.random.default_rng(5), device=dev,
+                show_progressbar=False))
+            if prof is not None:
+                prof.disable()
+            ms = (time.perf_counter() - t0) * 1e3 / N_MORE
+        finally:
+            metrics.set_enabled(True)
+            costs.disarm()
+            costs.clear()
+            EVENTS.disable()
+            EVENTS.clear()
+        return ms, landed(t, N_HISTORY)
+
+    _, first = hosted(False)
+    step_ms = {True: [], False: []}
+    for armed in (False, True, True, False) * 3:
+        ms, rows = hosted(armed)
+        if column_diffs(rows, first) or len(rows) != N_MORE:
+            fail("obs (d): an armed hosted run landed other trials")
+        step_ms[armed].append(ms)
+    prof = cProfile.Profile()
+    hosted(True, prof)
+    hook_s = sum(
+        st[2] for (path, _, name), st in pstats.Stats(prof).stats.items()
+        if os.sep + "obs" + os.sep in path or path.endswith("faults.py")
+        or name in ("_bump", "_obs_ms"))
+    print(f"obs (d): hosted step, host ms per step over the same {N_MORE} "
+          f"steps (turns disarmed, armed, armed, disarmed, three times): "
+          f"disarmed {', '.join(f'{m:.3f}' for m in step_ms[False])}"
+          f", armed {', '.join(f'{m:.3f}' for m in step_ms[True])}; armed "
+          f"minus disarmed, means "
+          f"{np.mean(step_ms[True]) - np.mean(step_ms[False]):.3f} ms, "
+          f"medians {np.median(step_ms[True]) - np.median(step_ms[False]):.3f}"
+          f" ms; the hooks' own time in an armed run by cProfile (its own "
+          f"cost per call included: an upper bound) "
+          f"{hook_s * 1e3 / N_MORE:.4f} ms per step")
+    print(f"obs: EI wrapper over the phase: eager launches {tally.launches}, "
+          f"recorded into graphs {tally.recorded}, graph replays "
+          f"{tally.replayed}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return tally.rows()
+
+
 def phase_card_tests():
     """``python -m pytest tests_torch_cuda`` in a subprocess: it must exit
     0 with every collected test passed."""
@@ -1346,20 +1637,24 @@ def main():
     liar_launches = phase_liar_batch(dev)
     device_launches, solo_rates = phase_device_mode(dev, hosted)
     fleet_launches, fleet_times = phase_fleet(dev, solo_rates)
+    obs_launches = phase_obs(dev)
     phase_card_tests()
     print(f"total seconds {time.perf_counter() - t0:.1f}")
     rows = []
     for low, (name, source, replaces, _, _) in KERNELS.items():
         # Launches on the main paths, each counted from zero just before
         # its run: the fmin phase (f32), this lowering's liar_batch run,
-        # device_mode's and the fleet's eager warm-up steps and the fleet's
-        # cohort dispatch.  A capture records the launch into its graph
-        # without running it (graph_recorded); graph_replays counts replays
-        # of graphs that hold the kernel, one kernel run each (for all
-        # lanes) by the profiler's count in device_mode (c), (d) and fleet
-        # (c).  fleet_ms: the kernel through its wrapper at 31·L columns.
+        # device_mode's, the fleet's and obs's eager warm-up steps, the
+        # fleet's cohort dispatch and obs's hosted runs.  A capture records
+        # the launch into its graph without running it (graph_recorded);
+        # graph_replays counts replays of graphs that hold the kernel, one
+        # kernel run each (for all lanes) by the profiler's count in
+        # device_mode (c), (d), fleet (c) and obs (a).  fleet_ms: the
+        # kernel through its wrapper at 31·L columns.
         dev_launches, dev_recorded, dev_replays = (
-            a + b for a, b in zip(device_launches[low], fleet_launches[low]))
+            a + b + c for a, b, c in zip(device_launches[low],
+                                         fleet_launches[low],
+                                         obs_launches[low]))
         n = (liar_launches[low] + (fmin_launches if low == "f32" else 0)
              + dev_launches)
         k = kernels[low]

@@ -8,11 +8,15 @@ resident on the device (``history.py``).  Device mode (``device.py``:
 ``fmin(mode="device")``, ``fmin_device``) runs the whole loop on the
 device as CUDA-graph replays of the TPE step; the fleet (``fleet.py``:
 ``fmin_fleet``, ``fmin_device(n_runs=)``, ``CohortScheduler``) runs many
-experiments as the lanes of one step.  Entry points run on CUDA unless the
-caller passes ``device="cpu"``.
+experiments as the lanes of one step.  ``obs`` holds the observability
+layer (events, metrics, ``fmin(trace_dir=)`` with ``torch.profiler``,
+health, bundles, device-mode telemetry) and ``faults`` the seeded fault
+points.  Entry points run on CUDA unless the caller passes
+``device="cpu"``.
 """
 
-from . import device, fleet, history, hp, rand, tpe  # noqa: F401
+from . import (  # noqa: F401
+    device, faults, fleet, history, hp, obs, rand, tpe)
 from .base import (  # noqa: F401
     Ctrl,
     Domain,
@@ -46,7 +50,8 @@ from .utils.early_stop import no_progress_loss  # noqa: F401
 
 __all__ = [
     "fmin", "fmin_device", "fmin_fleet", "FMinIter", "space_eval", "generate_trials_to_calculate",
-    "hp", "tpe", "rand", "scope", "history", "device", "fleet",
+    "hp", "tpe", "rand", "scope", "history", "device", "fleet", "obs",
+    "faults",
     "Trials", "trials_from_docs", "Domain", "Ctrl",
     "CompiledSpace", "compile_space", "no_progress_loss",
     "STATUS_NEW", "STATUS_RUNNING", "STATUS_SUSPENDED", "STATUS_OK",

@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from . import faults
 from .exceptions import (
     AllTrialsFailed,
     InvalidLoss,
@@ -454,7 +455,9 @@ class Domain:
                  attach_attachments=True):
         """Run the objective on one configuration; normalize the result.
         A float result becomes ``{'loss': x, 'status': 'ok'}``; a dict
-        result is validated."""
+        result is validated.  The ``objective.call`` fault point fires
+        first (``faults.py``)."""
+        faults.maybe_fail("objective.call")
         if self.pass_expr_memo_ctrl:
             rval = self.fn(expr=self.expr,
                            memo=self.memo_from_config(config), ctrl=ctrl)

@@ -60,16 +60,32 @@ out.  Before capture the step is run on a side stream (PyTorch's graph
 rule), under ``torch.cuda.set_sync_debug_mode("error")``; this also
 builds the EI kernels, so ``nvcc`` never runs inside a capture.
 
+**The telemetry slab** (``obs/devtel.py``).  With telemetry armed
+(``devtel.enabled()``, read once per run and keyed into the graph cache),
+the step also writes two columns, the TPE arm's winning EI score
+``ei_best`` (f32) and its candidate-argmax tie count ``ties``, into
+``[L, n_cap + 1]`` buffers at the row its trial lands in: two
+``index_copy_`` per replay, no other work in the graph.  They ride the
+segment's one fetch (:meth:`_Segment.fetch_slab`); the host masks startup
+trials and reduces the rest to the JAX package's slab, then backfills it
+into events, metrics, costs, health and flight bundles at each boundary.
+Armed and disarmed steps run the same proposal ops, so they land the same
+trials bit for bit.
+
 Counters (plain ints, like ``ei_scores.launches``): ``fetch_syncs``
 (device→host fetches that wait on the card), ``segments``,
 ``trials_landed``, ``captures``, ``replays``, ``run_cache_hits``,
 ``run_cache_misses`` and ``eager_steps`` (trials run without a graph:
-only on the CPU).  ``ei_scores.launches`` counts the EI kernel's eager
+only on the CPU).  All but ``replays`` and ``eager_steps`` (per trial)
+have registry twins (``device.fetch_syncs``, ``device.segments``,
+``device.trials_landed``, ``device.captures``, ``device.run_cache.hits``
+and ``.misses``), and an armed run adds the ``<mode>.<stride>`` twins of
+the first two.  ``ei_scores.launches`` counts the EI kernel's eager
 launches (the warm-up steps); a capture adds to ``ei_scores.recorded_by``
 instead, and replays pass through neither.
 
 Not in this slice: ``mesh=`` (the dispatch slice, ``ROADMAP.md``
-Queue 1), the telemetry slab (the obs slice).
+Queue 1).
 """
 
 from __future__ import annotations
@@ -86,6 +102,10 @@ import torch
 
 from .base import JOB_STATE_DONE, STATUS_OK, coarse_utcnow, docs_from_samples
 from .exceptions import AllTrialsFailed
+from .obs import costs as _costs
+from .obs import devtel as _devtel
+from .obs import metrics as _metrics
+from .obs.events import EVENTS
 from .space import CompiledSpace, compile_space, resolve_device
 from .tpe import (
     _bucket,
@@ -138,12 +158,30 @@ run_cache_misses = 0
 eager_steps = 0
 
 
+# The counters' registry twins (per segment or per run, not per trial).
+_TWINS = {"fetch_syncs": "device.fetch_syncs", "segments": "device.segments",
+          "trials_landed": "device.trials_landed",
+          "captures": "device.captures",
+          "run_cache_hits": "device.run_cache.hits",
+          "run_cache_misses": "device.run_cache.misses"}
+
+
 def reset_counters():
-    """Set every counter of this module to 0."""
+    """Set every counter of this module to 0 (the registry twins keep
+    counting)."""
     global fetch_syncs, segments, trials_landed, captures, replays
     global run_cache_hits, run_cache_misses, eager_steps
     fetch_syncs = segments = trials_landed = captures = replays = 0
     run_cache_hits = run_cache_misses = eager_steps = 0
+
+
+def _bump(**deltas):
+    """Add to counters of this module and to their registry twins."""
+    reg = _metrics.registry()
+    counters = globals()
+    for name, n in deltas.items():
+        counters[name] += n
+        reg.counter(_TWINS[name]).inc(n)
 
 
 class CaptureError(RuntimeError):
@@ -195,12 +233,18 @@ class _Segment:
     ``min_improvement``), all ``[L]``.  :meth:`load` fills them in place,
     so the addresses the graph captured stay valid.  Lane ``j`` owns the
     generators ``gens[2j]`` (startup draws) and ``gens[2j + 1]`` (the TPE
-    step's uniforms).  A run holds ``lock`` from :meth:`load` to its last
-    :meth:`fetch`: runs of one captured step from several threads take
-    turns."""
+    step's uniforms).  With ``telemetry``, the slab's columns ``eib``
+    (f32) and ``ties`` (int64), ``[L, n_cap + 1]``, get each trial's TPE
+    arm's winning EI score and tie count at its row.  A run holds ``lock``
+    from :meth:`load` to its last :meth:`fetch`: runs of one captured step
+    from several threads take turns.  ``build_s`` is the wall time of
+    building the segment (on the card, its warm-up and capture), and
+    ``fresh`` stays True until a run has recorded that build in the cost
+    ledger."""
 
     def __init__(self, cs, kern, eval_one, n_startup, gamma, prior_weight,
-                 n_lanes=1):
+                 n_lanes=1, telemetry=False):
+        t0 = time.perf_counter()
         self.cs = cs
         self.kern = kern
         self.n_lanes = n_lanes = int(n_lanes)
@@ -232,6 +276,11 @@ class _Segment:
         self.since = torch.zeros(lanes, dtype=i64, device=dev)
         self.best = torch.full(lanes, math.inf, dtype=f32, device=dev)
         self.min_improvement = torch.zeros(lanes, dtype=f32, device=dev)
+        self.telemetry = bool(telemetry)
+        if self.telemetry:
+            self.eib = torch.full((n_lanes, cap), -math.inf, dtype=f32,
+                                  device=dev)
+            self.ties = torch.zeros((n_lanes, cap), dtype=i64, device=dev)
         self.gens = [torch.Generator(device=dev) for _ in range(2 * n_lanes)]
         self.lock = threading.Lock()
         self._patience = _NO_PATIENCE
@@ -239,6 +288,8 @@ class _Segment:
         self.pool_bytes = 0
         if dev.type == "cuda":
             self._capture()
+        self.build_s = time.perf_counter() - t0
+        self.fresh = True
 
     def _step(self, noises=None):
         """One trial of every lane, in place on the buffers.  ``noises``:
@@ -258,7 +309,7 @@ class _Segment:
         if noises is None:
             noises = [self.kern.draw_noise(self.gens[2 * j + 1])
                       for j in range(lanes)]
-        tv, ta, _, _ = self.kern._suggest_lanes(
+        tv, ta, ei_best, ties = self.kern._suggest_lanes(
             *hist, self.gamma, self.prior_weight, noise=stack_noise(noises))
         startup = (n_ok < self.n_startup)[:, None]
         row = torch.where(startup, sv, tv)
@@ -272,6 +323,11 @@ class _Segment:
         _insert_row(*flat, at, row, act, torch.where(lok, loss, math.inf),
                     lok)
         self.raw.view(-1).index_copy_(0, at, loss)
+        if self.telemetry:
+            # The slab's columns: the TPE arm's stats, startup or not (the
+            # host masks startup trials).
+            self.eib.view(-1).index_copy_(0, at, ei_best)
+            self.ties.view(-1).index_copy_(0, at, ties)
         # No-progress count (fmin_device's patience): TPE trials only; a
         # NaN loss neither improves nor moves the best.
         best = self.best
@@ -289,7 +345,6 @@ class _Segment:
     def _capture(self):
         """Warm up on a side stream, then capture :meth:`_step`.  While
         ``limit`` is 0 every write goes to the spare rows."""
-        global captures
         dev = self.device
         # The sampler's constants are uploaded once per device: before the
         # warm-up, whose sync check would take the upload for a round trip.
@@ -317,7 +372,7 @@ class _Segment:
                                    f"{e}") from e
         self.graph = graph
         self.pool_bytes = _pool_bytes(graph)
-        captures += 1
+        _bump(captures=1)
         logger.info("device mode: captured the TPE step (n_cap=%d, %d "
                     "lanes); its graph's memory pool holds %d bytes",
                     self.n_cap, self.n_lanes, self.pool_bytes)
@@ -345,6 +400,9 @@ class _Segment:
         for buf, host in zip((self.hv, self.ha, self.hl, self.hok, self.raw),
                              (hv, ha, hl, hok, raw)):
             buf.copy_(torch.from_numpy(host).expand_as(buf))
+        if self.telemetry:
+            self.eib.fill_(-math.inf)
+            self.ties.zero_()
         okl = hl[:n][hok[:n]]
         self._patience = _NO_PATIENCE if patience is None else int(patience)
         self.i.fill_(n)
@@ -419,22 +477,34 @@ class _Segment:
         device→host copy (one fetch sync, the end of a segment):
         ``(vals f32[L, s, P], active bool[L, s, P], raw losses f32[L, s],
         i int[L])``."""
-        global fetch_syncs, segments
-        fetch_syncs += 1
-        segments += 1
+        return self.fetch_slab(i0, i1)[:4]
+
+    def fetch_slab(self, i0, i1):
+        """:meth:`fetch` plus the slab's columns of those rows in the same
+        copy: ``(vals, active, raw, i, tel)`` with ``tel = (ei_best
+        f32[L, s], ties int64[L, s])``, or None without telemetry.  The
+        tie counts cross as float32, exact below 2**24."""
+        _bump(fetch_syncs=1, segments=1)
         sl = slice(i0, i1)
         lanes = self.n_lanes
-        flat = torch.cat([self.hv[:, sl].reshape(-1),
-                          self.ha[:, sl].reshape(-1).to(torch.float32),
-                          self.raw[:, sl].reshape(-1),
-                          self.i.to(torch.float32)])
-        flat = flat.cpu().numpy()
+        parts = [self.hv[:, sl].reshape(-1),
+                 self.ha[:, sl].reshape(-1).to(torch.float32),
+                 self.raw[:, sl].reshape(-1)]
+        if self.telemetry:
+            parts += [self.eib[:, sl].reshape(-1),
+                      self.ties[:, sl].reshape(-1).to(torch.float32)]
+        flat = torch.cat(parts + [self.i.to(torch.float32)]).cpu().numpy()
         s, p = i1 - i0, self.cs.n_params
-        k = lanes * s * p
+        k, r = lanes * s * p, lanes * s
         vals = flat[:k].reshape(lanes, s, p)
         active = flat[k:2 * k].reshape(lanes, s, p) > 0.5
-        raw = flat[2 * k:2 * k + lanes * s].reshape(lanes, s)
-        return vals, active, raw, flat[-lanes:].astype(np.int64)
+        raw = flat[2 * k:2 * k + r].reshape(lanes, s)
+        tel = None
+        if self.telemetry:
+            o = 2 * k + r
+            tel = (flat[o:o + r].reshape(lanes, s),
+                   flat[o + r:o + 2 * r].reshape(lanes, s).astype(np.int64))
+        return vals, active, raw, flat[-lanes:].astype(np.int64), tel
 
 
 def _pool_bytes(graph):
@@ -447,21 +517,20 @@ def _pool_bytes(graph):
 
 
 def _build_segment(cs, kern, eval_one, n_startup, gamma, prior_weight,
-                   n_lanes=1):
+                   n_lanes=1, telemetry=False):
     """The per-trial step of device mode for one kernel (bucket, lowering,
-    device), objective and lane count: a :class:`_Segment`, captured on
-    CUDA.  Its :meth:`_Segment.run` runs a segment of trials, one per
-    seed (per lane)."""
+    device), objective, lane count and telemetry switch: a
+    :class:`_Segment`, captured on CUDA.  Its :meth:`_Segment.run` runs a
+    segment of trials, one per seed (per lane)."""
     return _Segment(cs, kern, eval_one, n_startup, gamma, prior_weight,
-                    n_lanes)
+                    n_lanes, telemetry)
 
 
 def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
                  gamma, prior_weight, linear_forgetting, split, cat_prior,
-                 ei_impl, ei_precision, ei_topm, n_lanes=1):
-    """The cached segment for this objective, bucket, tuning and lane
-    count, built (and captured) on a miss."""
-    global run_cache_hits, run_cache_misses
+                 ei_impl, ei_precision, ei_topm, n_lanes=1, telemetry=False):
+    """The cached segment for this objective, bucket, tuning, lane count
+    and telemetry switch, built (and captured) on a miss."""
     n_cap = _bucket(max_evals)
     dev = torch.device(device)
     # id(fn) is the only safe key for the objective: closures with the same
@@ -470,20 +539,23 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
     key = (id(fn), n_cap, str(dev), int(n_startup_jobs), float(gamma),
            float(prior_weight), int(linear_forgetting),
            int(n_EI_candidates), split, cat_prior, ei_impl, ei_precision,
-           int(ei_topm), int(n_lanes))
+           int(ei_topm), int(n_lanes), bool(telemetry))
     with _CACHE_LOCK:
         cache = cs.__dict__.setdefault("_device_runs", OrderedDict())
         hit = cache.get(key)
         if hit is not None:
             cache.move_to_end(key)
-            run_cache_hits += 1
+            _bump(run_cache_hits=1)
             return hit[1]
-        run_cache_misses += 1
+        _bump(run_cache_misses=1)
+        EVENTS.emit("compile", name="fmin_device_segment", n_cap=n_cap,
+                    n_lanes=int(n_lanes), telemetry=bool(telemetry))
         kern = get_kernel(cs, n_cap, int(n_EI_candidates),
                           int(linear_forgetting), split, cat_prior, dev,
                           ei_impl, ei_precision, int(ei_topm))
         seg = _build_segment(cs, kern, _wrap_objective(fn, cs),
-                             n_startup_jobs, gamma, prior_weight, n_lanes)
+                             n_startup_jobs, gamma, prior_weight, n_lanes,
+                             telemetry)
         cache[key] = (fn, seg)
         while len(cache) > _RUN_CACHE_CAP:
             cache.popitem(last=False)
@@ -578,13 +650,17 @@ def fmin_device(fn, space, max_evals, seed=0,
         pl = np.zeros((0,), np.float32)
     if patience is not None and int(patience) < 1:
         raise ValueError(f"patience must be >= 1, got {patience}")
+    # The telemetry switch keys the graph, so fmin_device shares the graphs
+    # of fmin(mode="device") and fmin_fleet; it reads no slab itself.
     seg = _segment_for(fn, cs, max_evals, dev, n_startup_jobs,
                        n_EI_candidates, gamma, prior_weight,
                        linear_forgetting, split, cat_prior, ei_impl,
-                       ei_precision, ei_topm, n_lanes=n_runs)
+                       ei_precision, ei_topm, n_lanes=n_runs,
+                       telemetry=_devtel.enabled())
     ok = np.isfinite(pl)
     rstates = [np.random.default_rng(int(seed) + j) for j in range(n_runs)]
     with seg.lock:
+        seg.fresh = False
         seg.load(pv, pa, np.where(ok, pl, np.inf), ok, pl, limit=max_evals,
                  patience=patience, min_improvement=min_improvement)
         seg.run(_lane_seeds(rstates, max_evals - n_prev))
@@ -608,9 +684,11 @@ def fmin_device(fn, space, max_evals, seed=0,
 
 def _land(trials, cs, rows, acts, losses):
     """Insert a segment's trials into ``trials`` as DONE docs: the rows, the
-    activity masks and the raw losses fetched from the device."""
-    docs = docs_from_samples(cs, trials.new_trial_ids(len(losses)), rows,
-                             acts, exp_key=getattr(trials, "exp_key", None))
+    activity masks and the raw losses fetched from the device.  Returns
+    their trial ids."""
+    new_ids = trials.new_trial_ids(len(losses))
+    docs = docs_from_samples(cs, new_ids, rows, acts,
+                             exp_key=getattr(trials, "exp_key", None))
     now = coarse_utcnow()
     for doc, loss in zip(docs, losses):
         doc["state"] = JOB_STATE_DONE
@@ -618,6 +696,7 @@ def _land(trials, cs, rows, acts, losses):
         doc["book_time"] = doc["refresh_time"] = now
     trials.insert_trial_docs(docs)
     trials.refresh()
+    return new_ids
 
 
 def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
@@ -640,8 +719,11 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
     and ``timeout`` and ``loss_threshold`` are checked at the segment's
     end, so a stop lands at the first boundary at or after the trial
     that triggers it.  Completed trials already in ``trials`` seed the
-    history (resume).  ``device`` defaults to CUDA."""
-    global trials_landed
+    history (resume).  ``device`` defaults to CUDA.
+
+    With telemetry armed (``obs/devtel.py``), each segment's slab rides
+    its fetch and is backfilled at the boundary, and the run ends with a
+    health verdict under ``device:<exp_key or "solo">``."""
     t_start = time.time()
     cs = space if isinstance(space, CompiledSpace) else compile_space(space)
     dev = resolve_device(device)
@@ -658,24 +740,55 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
     n_prev = int(h["loss"].shape[0])
     if n_prev >= max_evals:
         return trials
+    telemetry = _devtel.enabled()
     seg = _segment_for(fn, cs, max_evals, dev, n_startup_jobs,
                        n_EI_candidates, gamma, prior_weight,
                        linear_forgetting, split, cat_prior, ei_impl,
-                       ei_precision, ei_topm)
+                       ei_precision, ei_topm, telemetry=telemetry)
+    reg = _metrics.registry()
+    exp_key = getattr(trials, "exp_key", None)
+    stride_label = "inf" if sync_stride is None else str(sync_stride)
+    # The slab's host state: ok trials and best ok loss before a segment.
+    okl = h["loss"][h["ok"]]
+    n_ok = int(okl.size)
+    best = np.float32(okl.min()) if okl.size else np.float32(np.inf)
     early_stop_args: list = []
     i = n_prev
+    seg_index = 0
     progress_ctx = default_callback if show_progressbar \
         else no_progress_callback
     with seg.lock, progress_ctx(initial=n_prev, total=max_evals) as prog:
+        fresh, seg.fresh = seg.fresh, False
         seg.load(h["vals"], h["active"], h["loss"], h["ok"], h["loss"],
                  limit=max_evals)
         while i < max_evals:
             s = (max_evals - i if sync_stride is None
                  else min(sync_stride, max_evals - i))
+            t0 = time.perf_counter()
             seg.run(_seeds(rstate, s))
-            (rows,), (acts,), (losses,), _ = seg.fetch(i, i + s)
-            _land(trials, cs, rows, acts, losses)
-            trials_landed += s
+            (rows,), (acts,), (losses,), _, tel = seg.fetch_slab(i, i + s)
+            t1 = time.perf_counter()
+            new_ids = _land(trials, cs, rows, acts, losses)
+            _bump(trials_landed=s)
+            if telemetry:
+                slab = _devtel.slab_host(losses[None], *tel, [n_ok], [best],
+                                         seg.n_startup)
+                n_ok += int(np.isfinite(losses).sum())
+                best = slab["best_loss"][0]
+                _devtel.bump_labeled(reg, "solo", stride_label)
+                cost_key = ("device", "solo", s)
+                if fresh:
+                    fresh = False
+                    _costs.record_compile(
+                        "device", cost_key, n_cap=seg.n_cap, P=cs.n_params,
+                        m=s, compile_s=seg.build_s,
+                        memory_bytes=seg.pool_bytes)
+                _devtel.backfill_segment(
+                    reg, mode="solo", stride=stride_label, slab_h=slab,
+                    n_trials=s, n_lanes=1, t0_mono=t0, t1_mono=t1,
+                    seg_index=seg_index, cost_key=cost_key, tids=new_ids,
+                    label=exp_key)
+            seg_index += 1
             i += s
             prog.update(s)
             fin = losses[np.isfinite(losses)]
@@ -702,4 +815,6 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
                         break
                 except AllTrialsFailed:
                     pass
+    if telemetry:
+        _devtel.finish_run(reg, trials, mode="solo", label=exp_key)
     return trials

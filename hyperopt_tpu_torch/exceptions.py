@@ -34,7 +34,7 @@ class InvalidAnnotatedParameter(HyperoptTpuError):
 
 
 class InjectedFault(HyperoptTpuError):
-    """A seeded fault fired at a named fault point (``hyperopt_tpu.faults``).
+    """A seeded fault fired at a named fault point (``faults.py``).
 
     Always deliberate — raised only when a fault schedule is armed, never
     by production code paths.  Carries the fault-point name so retry logic

@@ -27,17 +27,24 @@ EI kernel included (``31·L`` columns on its ``grid.y``).  Two halves:
 Counters (plain ints, like ``ei_scores.launches``): ``dispatches``
 (cohort dispatches), ``suggestions`` (proposals they served),
 ``cohort_size_last``, ``cohort_tier_last`` and ``padding_waste`` (the
-share of padding lanes in the last cohort).
+share of padding lanes in the last cohort); their registry twins are
+``fleet.dispatches``, ``fleet.suggestions``, the ``fleet.cohort_size``
+histogram and the ``fleet.cohort_size_last``, ``fleet.cohort_tier_last``
+and ``fleet.padding_waste`` gauges, and each cohort emits a
+``fleet_dispatch`` event.  ``fmin_fleet`` carries device mode's telemetry
+slab with a lane axis (``obs/devtel.py``): each lane's info gets its slab
+reduced over the run, equal bit for bit to its solo run's.
 
-Not in this slice: ``mesh=`` (the dispatch slice), the telemetry slab and
-the obs hooks (the obs slice), the asynchronous halves of the algorithm
-(``start_transfer``/``handle_ready``, the pipeline slice), the service's
-cohort gate (the service slice) and ``multivariate`` (the TPE slice).
+Not in this slice: ``mesh=`` (the dispatch slice), the asynchronous halves
+of the algorithm (``start_transfer``/``handle_ready``, the pipeline
+slice), the service's cohort gate (the service slice) and
+``multivariate`` (the TPE slice).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 
 import numpy as np
@@ -45,6 +52,10 @@ import numpy as np
 from . import base, tpe
 from . import device as _device
 from . import history as _rhist
+from .obs import costs as _costs
+from .obs import devtel as _devtel
+from .obs.events import EVENTS
+from .obs.metrics import registry as _registry
 from .space import CompiledSpace, compile_space, resolve_device
 
 __all__ = ["CohortScheduler", "fmin_fleet", "fleet_report",
@@ -377,11 +388,21 @@ class CohortScheduler:
         rows_b, _ = kern.suggest_fleet_seeded(
             seeds, m, n_rows, *bufs, kw["gamma"], kw["prior_weight"])
         n_real = len(members)
+        n_sugg = sum(len(p.new_ids) for p in members)
         dispatches += 1
-        suggestions += sum(len(p.new_ids) for p in members)
+        suggestions += n_sugg
         cohort_size_last = n_real
         cohort_tier_last = b
         padding_waste = (b - n_real) / b
+        reg = _registry()
+        reg.counter("fleet.dispatches").inc()
+        reg.counter("fleet.suggestions").inc(n_sugg)
+        reg.histogram("fleet.cohort_size").observe(n_real)
+        reg.gauge("fleet.cohort_size_last").set(n_real)
+        reg.gauge("fleet.cohort_tier_last").set(b)
+        reg.gauge("fleet.padding_waste").set(padding_waste)
+        EVENTS.emit("fleet_dispatch", name=f"cohort[{n_real}/{b}]",
+                    n_cap=n_cap, m=m)
         result = _CohortResult(rows_b)
         for lane, prep in assigned.items():
             handles[prep.idx] = ("fleet", prep.cs, prep.new_ids,
@@ -453,7 +474,10 @@ def fmin_fleet(fn, space, n_lanes, max_evals, seed=0, sync_stride=None,
 
     Returns a list of per-lane ``info`` dicts (``best``, ``best_loss``,
     ``best_index``, ``losses f32[max_evals]``, ``vals``, ``active``) in
-    lane order."""
+    lane order; with telemetry armed, each also holds ``telemetry``, the
+    lane's slab over the run (``best_loss``, ``ei_max``, ``ei_mean``,
+    ``tpe_steps``, ``nonfinite``, ``argmax_ties``, and the last segment's
+    ``best_trajectory``)."""
     cs = space if isinstance(space, CompiledSpace) else compile_space(space)
     n_lanes = int(n_lanes)
     max_evals = int(max_evals)
@@ -475,40 +499,92 @@ def fmin_fleet(fn, space, n_lanes, max_evals, seed=0, sync_stride=None,
         raise NotImplementedError(_NOT_PORTED.format(
             what="fmin_fleet(multivariate=True)", slice="TPE"))
     dev = resolve_device(device)
+    telemetry = _devtel.enabled()
     seg = _device._segment_for(fn, cs, max_evals, dev, n_startup_jobs,
                               n_EI_candidates, gamma, prior_weight,
                               linear_forgetting, split, cat_prior, ei_impl,
-                              ei_precision, ei_topm, n_lanes=n_lanes)
+                              ei_precision, ei_topm, n_lanes=n_lanes,
+                              telemetry=telemetry)
     # Alive for this call: the weak set drops it when the call returns.
     stack = _LaneStackHandle(seg)
     _LANE_STACKS.add(stack)
     rstates = [np.random.default_rng(int(seed) + j) for j in range(n_lanes)]
     p = cs.n_params
+    reg = _registry()
+    stride_label = "inf" if sync_stride is None else str(sync_stride)
     parts = []
+    slabs = []
     with seg.lock:
+        fresh, seg.fresh = seg.fresh, False
         seg.load(np.zeros((0, p), np.float32), np.zeros((0, p), bool),
                  np.zeros(0, np.float32), np.zeros(0, bool),
                  np.zeros(0, np.float32), limit=max_evals)
+        # The slab's host state per lane: ok trials and best ok loss.
+        n_ok = np.zeros(n_lanes, np.int64)
+        best = np.full(n_lanes, np.inf, np.float32)
         i = 0
         while i < max_evals:
             s = (max_evals - i if sync_stride is None
                  else min(sync_stride, max_evals - i))
+            t0 = time.perf_counter()
             seg.run(_device._lane_seeds(rstates, s))
-            vals, acts, losses, _ = seg.fetch(i, i + s)
+            vals, acts, losses, _, tel = seg.fetch_slab(i, i + s)
+            t1 = time.perf_counter()
             parts.append((vals, acts, losses))
+            if telemetry:
+                slab = _devtel.slab_host(losses, *tel, n_ok, best,
+                                         seg.n_startup)
+                slabs.append(slab)
+                n_ok += np.isfinite(losses).sum(axis=1)
+                best = slab["best_loss"]
+                _devtel.bump_labeled(reg, "fleet", stride_label)
+                cost_key = ("device", "fleet", s, n_lanes)
+                if fresh:
+                    fresh = False
+                    _costs.record_compile(
+                        "device", cost_key, n_cap=seg.n_cap, P=p, m=s,
+                        tier=n_lanes, compile_s=seg.build_s,
+                        memory_bytes=seg.pool_bytes)
+                # Fleet segments backfill the span and the aggregates; the
+                # per-trial anchors are solo mode's (L·s instants per
+                # boundary would swamp the ring).
+                _devtel.backfill_segment(
+                    reg, mode="fleet", stride=stride_label, slab_h=slab,
+                    n_trials=s, n_lanes=n_lanes, t0_mono=t0, t1_mono=t1,
+                    seg_index=len(parts) - 1, cost_key=cost_key)
             if trials_list is not None:
                 for j, trials in enumerate(trials_list):
                     _device._land(trials, cs, vals[j], acts[j], losses[j])
-                _device.trials_landed += s * n_lanes
+                _device._bump(trials_landed=s * n_lanes)
             i += s
     vals, active, losses = (np.concatenate(a, axis=1) for a in zip(*parts))
     out = []
     for j in range(n_lanes):
         order = np.where(np.isnan(losses[j]), np.inf, losses[j])
         bi = int(np.argmin(order))
-        best = {q.label: cs._param_value(q, vals[j, bi, q.pid])
-                for q in cs.params if active[j, bi, q.pid]}
-        out.append({"best": best, "best_loss": float(losses[j, bi]),
-                    "best_index": bi, "losses": losses[j], "vals": vals[j],
-                    "active": active[j]})
+        best_j = {q.label: cs._param_value(q, vals[j, bi, q.pid])
+                  for q in cs.params if active[j, bi, q.pid]}
+        info = {"best": best_j, "best_loss": float(losses[j, bi]),
+                "best_index": bi, "losses": losses[j], "vals": vals[j],
+                "active": active[j]}
+        if slabs:
+            info["telemetry"] = _lane_telemetry(slabs, j)
+        out.append(info)
     return out
+
+
+def _lane_telemetry(slabs, j):
+    """Lane ``j``'s slab over a run from its segments' slabs: min and max
+    for the levels, sums for the counts, the last segment's trajectory
+    (it already tracks the run's best-so-far)."""
+    n_tpe = sum(int(sl["tpe_steps"][j]) for sl in slabs)
+    ei_sum = sum(float(sl["ei_sum"][j]) for sl in slabs)
+    return {
+        "best_loss": min(float(sl["best_loss"][j]) for sl in slabs),
+        "ei_max": max(float(sl["ei_max"][j]) for sl in slabs),
+        "ei_mean": (ei_sum / n_tpe) if n_tpe else None,
+        "tpe_steps": n_tpe,
+        "nonfinite": sum(int(sl["nonfinite"][j]) for sl in slabs),
+        "argmax_ties": sum(int(sl["argmax_ties"][j]) for sl in slabs),
+        "best_trajectory": slabs[-1]["best_trajectory"][j],
+    }

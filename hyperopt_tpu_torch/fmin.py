@@ -15,6 +15,15 @@ and raises when there is none; pass ``device="cpu"`` to run on the CPU.
 ``mode="device"`` runs the whole loop on the device instead, for a torch
 objective: one CUDA-graph replay per trial, the trials landed every
 ``sync_stride`` of them (``device.py``).
+
+Observability (``obs/``): the loop emits ``trial_queued``/``trial_start``/
+``trial_end``/``suggest`` events and the ``fmin.batches``,
+``fmin.trials.done``/``error`` and ``fmin.trials_per_sec`` metrics;
+``trace_dir=`` times the ``suggest``, ``store``, ``evaluate``, ``save``
+and ``early_stop`` spans of each batch and writes ``loop_trace.json``,
+``loop_events.jsonl``, ``chrome_trace.json`` and the ``torch.profiler``
+export ``profiler_trace.json`` there; an exception escaping the loop
+triggers the flight recorder when it is installed (``obs/flight.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import numbers
 import os
 import pickle
 import time
+from contextlib import contextmanager
 from functools import partial
 
 import numpy as np
@@ -40,6 +50,11 @@ from .base import (
     coarse_utcnow,
 )
 from .exceptions import AllTrialsFailed
+from .obs import context as _context
+from .obs import flight as _flight
+from .obs import metrics as _metrics
+from .obs.events import EVENTS
+from .obs.trace import NullTracer, Tracer
 from .space import compile_space, resolve_device
 from .utils.progress import default_callback, no_progress_callback
 
@@ -77,10 +92,11 @@ class FMinIter:
     def __init__(self, algo, domain, trials, rstate=None,
                  early_stop_fn=None, trials_save_file="", max_evals=None,
                  timeout=None, loss_threshold=None, show_progressbar=True,
-                 max_queue_len=1):
+                 max_queue_len=1, trace_dir=None):
         if int(max_queue_len) < 1:
             raise ValueError(f"max_queue_len must be >= 1, got "
                              f"{max_queue_len!r}")
+        self.tracer = _tracer(trace_dir, domain.cs.device)
         self.algo = algo
         self.max_queue_len = int(max_queue_len)
         self.domain = domain
@@ -96,20 +112,28 @@ class FMinIter:
         self.show_progressbar = show_progressbar
 
     def serial_evaluate(self):
+        reg = _metrics.registry()
         for trial in self.trials._dynamic_trials:
             if trial["state"] != JOB_STATE_NEW:
                 continue
             trial["state"] = JOB_STATE_RUNNING
             trial["book_time"] = coarse_utcnow()
+            EVENTS.emit("trial_start", trial=trial["tid"])
             ctrl = Ctrl(self.trials, current_trial=trial)
             try:
                 spec = base.spec_from_misc(trial["misc"])
-                result = self.domain.evaluate(spec, ctrl)
+                # Events emitted inside the objective attach to this trial
+                # through the ambient context (free when it is disarmed).
+                with _context.bind_doc(trial):
+                    result = self.domain.evaluate(spec, ctrl)
             except Exception as e:
                 logger.error("job exception: %s", e)
                 trial["state"] = JOB_STATE_ERROR
                 trial["misc"]["error"] = (type(e).__name__, str(e))
                 trial["refresh_time"] = coarse_utcnow()
+                EVENTS.emit("trial_end", trial=trial["tid"], state="error",
+                            error=type(e).__name__)
+                reg.counter("fmin.trials.error").inc()
                 if not self.catch_eval_exceptions:
                     self.trials.refresh()
                     raise
@@ -117,6 +141,9 @@ class FMinIter:
                 trial["state"] = JOB_STATE_DONE
                 trial["result"] = result
                 trial["refresh_time"] = coarse_utcnow()
+                EVENTS.emit("trial_end", trial=trial["tid"], state="done",
+                            loss=result.get("loss"))
+                reg.counter("fmin.trials.done").inc()
         self.trials.refresh()
 
     def _stopped(self, n_done):
@@ -145,25 +172,41 @@ class FMinIter:
         remaining = (self.max_evals - self.n_enqueued()
                      if self.max_evals is not None else self.max_queue_len)
         n_to_enqueue = min(self.max_queue_len - qlen, remaining)
+        tracer = self.tracer
         if n_to_enqueue > 0:
-            seed = int(self.rstate.integers(2 ** 31 - 1))
-            new_ids = trials.new_trial_ids(n_to_enqueue)
-            trials.refresh()
-            new_trials = self.algo(new_ids, self.domain, trials, seed)
+            with tracer.span("suggest"):
+                seed = int(self.rstate.integers(2 ** 31 - 1))
+                new_ids = trials.new_trial_ids(n_to_enqueue)
+                trials.refresh()
+                new_trials = self.algo(new_ids, self.domain, trials, seed)
+                EVENTS.emit("suggest",
+                            n=0 if new_trials is None else len(new_trials))
             if new_trials is None or len(new_trials) == 0:
                 stopped = True
             else:
-                trials.insert_trial_docs(new_trials)
-                trials.refresh()
-        self.serial_evaluate()
-        self._save_trials()
+                if _context.armed():
+                    for doc in new_trials:
+                        _context.stamp_misc(doc["misc"], tid=doc["tid"],
+                                            trace_id=tracer.trace_id)
+                if EVENTS.enabled:
+                    for doc in new_trials:
+                        EVENTS.emit("trial_queued", trial=doc["tid"])
+                with tracer.span("store"):
+                    trials.insert_trial_docs(new_trials)
+                    trials.refresh()
+        with tracer.span("evaluate"):
+            self.serial_evaluate()
+        with tracer.span("save"):
+            self._save_trials()
         if self.early_stop_fn is not None:
-            stop, kwargs = self.early_stop_fn(self.trials,
-                                              *self.early_stop_args)
+            with tracer.span("early_stop"):
+                stop, kwargs = self.early_stop_fn(self.trials,
+                                                  *self.early_stop_args)
             self.early_stop_args = kwargs
             if stop:
                 logger.info("early stop triggered")
                 stopped = True
+        _metrics.registry().counter("fmin.batches").inc()
         return stopped
 
     def n_done(self):
@@ -182,9 +225,9 @@ class FMinIter:
         with open(tmp, "wb") as f:
             pickle.dump(self.trials, f, protocol=self.pickle_protocol)
         os.replace(tmp, self.trials_save_file)
+        EVENTS.emit("store_flush", name="trials_save_file")
 
-    def exhaust(self):
-        """Run until ``max_evals`` complete or a stop condition fires."""
+    def _loop(self):
         progress_ctx = default_callback if self.show_progressbar \
             else no_progress_callback
         with progress_ctx(initial=self.n_done(), total=self.max_evals) as prog:
@@ -199,7 +242,45 @@ class FMinIter:
                     pass
                 if stopped or after == before:
                     break
+
+    def exhaust(self):
+        """Run until ``max_evals`` complete or a stop condition fires."""
+        with _traced(self.tracer):
+            t0 = time.perf_counter()
+            try:
+                self._loop()
+            except BaseException as e:
+                _flight.on_crash("fmin", e)
+                raise
+            finally:
+                wall = time.perf_counter() - t0
+                if wall > 0:
+                    _metrics.registry().gauge("fmin.trials_per_sec").set(
+                        self.n_done() / wall)
         return self
+
+
+def _tracer(trace_dir, device):
+    """The run's tracer: one that writes ``trace_dir`` and profiles
+    ``device``, or the no-op one."""
+    if not trace_dir:
+        return NullTracer()
+    return Tracer(trace_dir, device_trace=True, device=device)
+
+
+@contextmanager
+def _traced(tracer):
+    """Profile the block, and write the trace dir when it ends, however it
+    ends; the profiler's start and export stay outside the wall time the
+    spans are attributed against."""
+    tracer.start_device_trace()
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        tracer.set_wall(time.perf_counter() - t0)
+        tracer.stop_device_trace()
+        tracer.dump()
 
 
 def fmin(fn, space, algo=None, max_evals=None,
@@ -210,7 +291,7 @@ def fmin(fn, space, algo=None, max_evals=None,
          points_to_evaluate=None,
          show_progressbar=True, early_stop_fn=None,
          trials_save_file="", device=None, max_queue_len=1, mode=None,
-         sync_stride=None):
+         sync_stride=None, trace_dir=None):
     """Minimize ``fn`` over ``space`` using ``algo`` (default TPE).
 
     ``fn`` returns a float loss or a result dict with ``loss``/``status``;
@@ -224,6 +305,14 @@ def fmin(fn, space, algo=None, max_evals=None,
     is how many trials one call of the algo proposes (TPE: one batch of
     its constant-liar scan); 1 proposes one trial at a time.  Returns the
     best point (``return_argmin``) or the best loss.
+
+    ``trace_dir`` traces the run into that directory: span totals
+    (``loop_trace.json``), the event log (``loop_events.jsonl`` and its
+    Chrome export ``chrome_trace.json``) and the ``torch.profiler`` trace
+    (``profiler_trace.json``: on CUDA every kernel launch, the EI kernel's
+    included, and the kernels replayed from CUDA graphs).  In device mode
+    the event log holds the telemetry slab's back-dated ``device_segment``
+    spans in place of the hosted loop's.
 
     ``mode="device"`` (``None`` and ``"host"`` are the hosted loop) runs
     TPE and a torch objective on the device (``device.py``: the objective
@@ -287,12 +376,14 @@ def fmin(fn, space, algo=None, max_evals=None,
         algo_kw = _device_algo_kwargs(algo)
         from .device import fmin_trials as _device_fmin_trials
 
-        _device_fmin_trials(
-            fn, space, max_evals=max_evals, trials=trials, rstate=rstate,
-            sync_stride=sync_stride, early_stop_fn=early_stop_fn,
-            timeout=timeout, loss_threshold=loss_threshold,
-            show_progressbar=show_progressbar and verbose, device=dev,
-            **algo_kw)
+        with _traced(_tracer(trace_dir, dev)):
+            _device_fmin_trials(
+                fn, space, max_evals=max_evals, trials=trials,
+                rstate=rstate, sync_stride=sync_stride,
+                early_stop_fn=early_stop_fn, timeout=timeout,
+                loss_threshold=loss_threshold,
+                show_progressbar=show_progressbar and verbose, device=dev,
+                **algo_kw)
         return _result(trials, return_argmin)
 
     domain = Domain(fn, space, pass_expr_memo_ctrl=pass_expr_memo_ctrl)
@@ -304,7 +395,7 @@ def fmin(fn, space, algo=None, max_evals=None,
                     max_evals=max_evals, timeout=timeout,
                     loss_threshold=loss_threshold,
                     show_progressbar=show_progressbar and verbose,
-                    max_queue_len=max_queue_len)
+                    max_queue_len=max_queue_len, trace_dir=trace_dir)
     rval.catch_eval_exceptions = catch_eval_exceptions
     rval.exhaust()
     rval._save_trials()

@@ -38,7 +38,10 @@ with ``resident=False``.
 Counters (plain ints, like ``ei_scores.launches``): ``upload_bytes``
 (every host→device byte this module moves), ``append_hits`` (calls or
 cohort lanes served by the delta path), ``rebuilds`` (full re-uploads of a
-ring or a lane), ``evicted`` (rings dropped by the LRU cap).
+ring or a lane), ``evicted`` (rings dropped by the LRU cap).  Each has a
+registry twin, ``history.<name>`` (``obs/metrics.py``); a reorder bumps
+``history.order_violations`` and emits a ``history_order_violation``
+event before it raises.
 """
 
 from __future__ import annotations
@@ -51,6 +54,9 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .obs import metrics as _metrics
+from .obs.events import EVENTS
+
 __all__ = ["device_history", "pregrow", "forget", "generation",
            "HistoryOrderError", "BatchedResident", "device_history_batched",
            "pregrow_batched", "KEEP", "upload_bytes", "append_hits",
@@ -60,6 +66,16 @@ upload_bytes = 0
 append_hits = 0
 rebuilds = 0
 evicted = 0
+
+
+def _bump(**deltas):
+    """Add to this module's plain-int counters and to their registry twins
+    (``history.<name>``)."""
+    reg = _metrics.registry()
+    counters = globals()
+    for name, n in deltas.items():
+        counters[name] += n
+        reg.counter(f"history.{name}").inc(n)
 
 
 class _Keep:
@@ -113,6 +129,8 @@ _GENS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 # key) -> None, hottest last: the order the cap evicts in.
 _LRU: "OrderedDict" = OrderedDict()
 _LOCK = threading.Lock()
+# Live cohort stores, for obs/device.py's device-memory report.
+_BATCHED: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def generation(trials) -> int:
@@ -140,7 +158,6 @@ def forget(trials):
 def _lru_touch(trials, key, cap):
     """Mark ``(trials, key)`` most recently used and drop the coldest rings
     past ``cap``.  Caller holds ``_LOCK``."""
-    global evicted
     try:
         ref = weakref.ref(trials)
     except TypeError:
@@ -154,7 +171,7 @@ def _lru_touch(trials, key, cap):
             continue        # its trials died, and its ring with it
         states = _STORE.get(owner)
         if states is not None and states.pop(k, None) is not None:
-            evicted += 1
+            _bump(evicted=1)
 
 
 def _states(trials):
@@ -224,6 +241,9 @@ def _check_tid_order(st, cs, h, p):
         return      # resident rows vanished: rebuild
     if all(b > a for a, b in zip(idxs, idxs[1:])):
         return      # still a subsequence (a mid-history insert): rebuild
+    _metrics.registry().counter("history.order_violations").inc()
+    EVENTS.emit("history_order_violation", name="resident_ring",
+                n_resident=int(st.n), positions=idxs[:8])
     raise HistoryOrderError(
         f"resident history rows appended out of tid order: the trials log "
         f"still holds all {st.n} resident tids but permuted them (first "
@@ -243,7 +263,6 @@ def device_history(trials, cs, h, n_cap, fantasies=None, device=None,
     that pass a cap (least recently used out first).  The tensors returned
     (without fantasies) are the ring's own, or a view of them: read them,
     do not write them."""
-    global upload_bytes, append_hits, rebuilds
     n, p = h["vals"].shape
     if n > n_cap:
         raise ValueError(f"{n} history rows do not fit n_cap={n_cap}")
@@ -259,8 +278,7 @@ def device_history(trials, cs, h, n_cap, fantasies=None, device=None,
                                                        dev))
             if states is not None:
                 states[key] = st
-            rebuilds += 1
-            upload_bytes += cap * _row_bytes(p)
+            _bump(rebuilds=1, upload_bytes=cap * _row_bytes(p))
         else:
             if n_cap > st.cap:
                 st.bufs = _grow(st.bufs, n_cap)
@@ -272,10 +290,10 @@ def device_history(trials, cs, h, n_cap, fantasies=None, device=None,
                              h["ok"][sl]), dev)
                 for buf, rows_k in zip(st.bufs, rows):
                     buf[sl] = rows_k
-                upload_bytes += (n - st.n) * _row_bytes(p)
+                _bump(upload_bytes=(n - st.n) * _row_bytes(p))
                 st.n = n
                 st.tids = h["tids"]
-            append_hits += 1
+            _bump(append_hits=1)
         if states is not None and lru_cap:
             _lru_touch(trials, key, int(lru_cap))
         out = st.bufs
@@ -293,7 +311,7 @@ def device_history(trials, cs, h, n_cap, fantasies=None, device=None,
         ha[n:n + m] = pa_t
         hl[n:n + m] = float(np.float32(lie))
         hok[n:n + m] = True
-        upload_bytes += m * (p * 4 + p)
+        _bump(upload_bytes=m * (p * 4 + p))
         out = (hv, ha, hl, hok)
     return out
 
@@ -327,7 +345,7 @@ class BatchedResident:
     coherence rules of the solo ring, lane by lane."""
 
     __slots__ = ("b", "cap", "p", "device", "n", "tids", "gens", "filled",
-                 "bufs")
+                 "bufs", "__weakref__")
 
     def __init__(self, b: int, cap: int, p: int, device):
         self.b = b
@@ -344,6 +362,7 @@ class BatchedResident:
                      torch.full((b, cap), math.inf, dtype=torch.float32,
                                 device=dev),
                      torch.zeros((b, cap), dtype=torch.bool, device=dev))
+        _BATCHED.add(self)
 
     def nbytes(self) -> int:
         """Device bytes of the stacked rings."""
@@ -390,7 +409,6 @@ def device_history_batched(store, lanes, n_cap, fantasies=None, gens=None,
     generation moved (its trials was wiped) is uploaded whole even when
     reused tids happen to match.  ``device`` defaults to the store's, and
     for a new store to CUDA."""
-    global upload_bytes, append_hits, rebuilds
     b = len(lanes)
     if gens is None:
         gens = [0] * b
@@ -437,16 +455,15 @@ def device_history_batched(store, lanes, n_cap, fantasies=None, gens=None,
                              h["ok"][sl]), dev)
                 for buf, rows_k in zip(store.bufs, rows):
                     buf[i, sl] = rows_k
-                upload_bytes += (n - store.n[i]) * _row_bytes(p)
-            append_hits += 1
+                _bump(upload_bytes=(n - store.n[i]) * _row_bytes(p))
+            _bump(append_hits=1)
         else:
             # First touch, a prefix mismatch or a wipe: the whole lane,
             # padded to the capacity (which also clears stale rows).
             for buf, rows_k in zip(store.bufs,
                                    _put(_padded_history(h, cap), dev)):
                 buf[i] = rows_k
-            rebuilds += 1
-            upload_bytes += cap * _row_bytes(p)
+            _bump(rebuilds=1, upload_bytes=cap * _row_bytes(p))
         store.n[i], store.tids[i] = n, h["tids"]
         store.gens[i] = gens[i]
         store.filled[i] = store.filled[i] or n > 0
@@ -461,7 +478,6 @@ def device_history_batched(store, lanes, n_cap, fantasies=None, gens=None,
 def _overlay_batched(bufs, lanes, fantasies, n_cap, p, dev):
     """Each lane's constant-liar slots, laid out from its last real row on
     and clipped to the bucket, in a copy of the stacked rings."""
-    global upload_bytes
     out = None
     for i, f in enumerate(fantasies):
         if f is None:
@@ -480,7 +496,7 @@ def _overlay_batched(bufs, lanes, fantasies, n_cap, p, dev):
             ha[i, pos:pos + m] = pa_t
             hl[i, pos:pos + m] = float(np.float32(lie))
             hok[i, pos:pos + m] = True
-            upload_bytes += m * (p * 4 + p)
+            _bump(upload_bytes=m * (p * 4 + p))
             pos += m
     return bufs if out is None else out
 

@@ -46,6 +46,8 @@ case, and lane ``j`` proposes bit for bit what a solo call proposes.
 from __future__ import annotations
 
 import math
+import threading
+from time import perf_counter
 from types import SimpleNamespace
 
 import numpy as np
@@ -53,6 +55,9 @@ import torch
 
 from . import base, history, rand
 from .history import _padded_history
+from .obs import costs as _costs
+from .obs.metrics import kernel_cache_event
+from .obs.metrics import registry as _metrics_registry
 from .ops.ei_scores import MAX_COLUMNS, ei_scores
 from .ops.fixed_order import prefix_sum, tree_sum
 from .ops.gmm import (gmm_log_qmass, gmm_sample, icdf_pick, onehot_lookup,
@@ -85,6 +90,9 @@ _EI_IMPLS = ("vpu", "mxu")
 _EI_PRECISIONS = ("f32", "bf16")
 
 _TINY = 1e-12
+# Bucket bounds in MILLISECONDS of the suggest.*_ms histograms: 50 us to
+# ~26 s, x2 per bucket (the registry's default buckets are seconds).
+_MS_BUCKETS = tuple(0.05 * (2.0 ** i) for i in range(20))
 _LOG_KINDS = (LOGUNIFORM, QLOGUNIFORM, LOGNORMAL, QLOGNORMAL)
 # Finite stand-in for a -inf score: never wins an argmax, never NaNs.
 _NEG = -3e38
@@ -179,6 +187,13 @@ class _ContGroup:
         return SimpleNamespace(**out)
 
 
+def _obs_ms(reg, name, ms):
+    """Record a host phase's milliseconds both ways: the counter keeps the
+    running total, the same-named histogram the distribution."""
+    reg.counter(name).inc(ms)
+    reg.histogram(name, buckets=_MS_BUCKETS).observe(ms)
+
+
 def _check_ei_args(ei_impl, ei_precision, ei_topm):
     if ei_impl not in _EI_IMPLS:
         raise ValueError(f"ei_impl must be one of {_EI_IMPLS}, got "
@@ -241,6 +256,10 @@ class _TpeKernel:
                 f"cat_prior must be 'sqrt' or 'const', got {cat_prior!r}")
         self.cat_prior = cat_prior
         self.device = torch.device(device)
+        # The cohort tiers (lanes, steps) this kernel has served, for the
+        # kernel-cache and cost rows of suggest_fleet_seeded.
+        self._fleet_tiers = set()
+        self._tiers_lock = threading.Lock()
 
         cont_q, cont_n, cat = [], [], []
         for s in cs.params:
@@ -620,9 +639,20 @@ class _TpeKernel:
         the liar scan of :meth:`suggest_many`, its uniforms drawn from a
         generator seeded with ``seeds[j] % 2**32`` (as
         ``suggest_dispatch``), or taken from ``noises[j]`` (a list of
-        ``m`` :meth:`draw_noise` dicts)."""
+        ``m`` :meth:`draw_noise` dicts).  Each call feeds the
+        kernel-cache and cost rows of its tier ``("fleet", n_cap, P, m,
+        B)``."""
         b = len(seeds)
         self.check_lanes(b)
+        tier = ("fleet", self.n_cap, self.cs.n_params, m, b)
+        with self._tiers_lock:
+            hit = tier in self._fleet_tiers
+            self._fleet_tiers.add(tier)
+        kernel_cache_event(tier, hit)
+        if not hit:
+            _costs.record_compile("fleet", tier, n_cap=self.n_cap,
+                                  P=self.cs.n_params, m=m, tier=b)
+        t0 = perf_counter()
         n_rows = [int(r) for r in n_rows]
         if len(n_rows) != b:
             raise ValueError(f"{len(n_rows)} cursors for {b} lanes")
@@ -645,10 +675,14 @@ class _TpeKernel:
             rows, acts, _, _ = self._suggest_lanes(
                 hv, ha, hl, hok, gamma, prior_weight, gens,
                 None if steps is None else steps[0])
-            return rows[:, None], acts[:, None]
-        at = torch.as_tensor(n_rows, dtype=torch.int64, device=self.device)
-        return self._liar_lanes(m, at, hv, ha, hl, hok, gamma, prior_weight,
-                                gens, steps)
+            out = rows[:, None], acts[:, None]
+        else:
+            at = torch.as_tensor(n_rows, dtype=torch.int64,
+                                 device=self.device)
+            out = self._liar_lanes(m, at, hv, ha, hl, hok, gamma,
+                                   prior_weight, gens, steps)
+        _costs.observe_dispatch(tier, (perf_counter() - t0) * 1e3)
+        return out
 
 
 def stack_noise(noises):
@@ -695,14 +729,22 @@ def get_kernel(cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
                split: str = "sqrt", cat_prior: str = "sqrt",
                device="cuda", ei_impl: str = "vpu", ei_precision: str = "f32",
                ei_topm: int = 0) -> _TpeKernel:
-    """The cached :class:`_TpeKernel` for these shapes and arguments."""
+    """The cached :class:`_TpeKernel` for these shapes and arguments.  Each
+    lookup feeds ``kernel_cache_event``; a miss records the kernel's build
+    time in the cost ledger (when armed)."""
     cache = cs.__dict__.setdefault("_tpe_kernels", {})
     dev = torch.device(device)
     k = (n_cap, n_cand, lf, split, cat_prior, str(dev), ei_impl,
          ei_precision, int(ei_topm))
-    if k not in cache:
+    hit = k in cache
+    if not hit:
+        t0 = perf_counter()
         cache[k] = _TpeKernel(cs, n_cap, n_cand, lf, split, cat_prior, dev,
                               ei_impl, ei_precision, ei_topm)
+        cache[k].cost_key = k
+        _costs.record_compile("tpe", k, n_cap=n_cap, P=cs.n_params, m=1,
+                              compile_s=perf_counter() - t0)
+    kernel_cache_event(k, hit)
     return cache[k]
 
 
@@ -838,17 +880,26 @@ def suggest_dispatch(new_ids, domain, trials, seed,
             # Near the bucket boundary: pad-copy to the next bucket now,
             # so that the call that crosses it pays no copy.
             history.pregrow(trials, cs, kern.n_cap * 2, dev)
+    t_feed = perf_counter()
+    if resident:
         hist = history.device_history(trials, cs, h, kern.n_cap,
                                       fantasies=fant, device=dev)
     else:
         hist = [torch.as_tensor(a, device=dev)
                 for a in _padded_history(h, kern.n_cap)]
+    reg = _metrics_registry()
+    t_disp = perf_counter()
+    _obs_ms(reg, "suggest.upload_ms", (t_disp - t_feed) * 1e3)
     gen = make_generator(dev, int(seed) % (2 ** 32))
     if n == 1:
         rows, _ = kern(*hist, gamma, prior_weight, generator=gen)
     else:
         rows, _ = kern.suggest_many(m, n_rows, *hist, gamma, prior_weight,
                                     generator=gen)
+    # Host clocks only: on the card this is the enqueue, not the step.
+    dms = (perf_counter() - t_disp) * 1e3
+    _obs_ms(reg, "suggest.dispatch_ms", dms)
+    _costs.observe_dispatch(kern.cost_key, dms)
     return ("pending", cs, list(new_ids), rows, exp_key)
 
 
@@ -860,7 +911,10 @@ def _force_rows(handle):
     host."""
     tag, cs, new_ids, rows = handle[:4]
     if tag == "pending":
-        vals = rows.cpu().numpy()
+        t0 = perf_counter()
+        vals = rows.cpu().numpy()   # the suggest step's one device sync
+        _obs_ms(_metrics_registry(), "suggest.fetch_sync_ms",
+                (perf_counter() - t0) * 1e3)
         if vals.ndim == 1:
             vals = vals[None, :]
         vals = vals[:len(new_ids)]
@@ -873,3 +927,38 @@ def suggest_materialize(handle):
     _, cs, new_ids, _rows, exp_key = handle
     vals, active = _force_rows(handle)
     return base.docs_from_samples(cs, new_ids, vals, active, exp_key=exp_key)
+
+
+def introspect(domain, trials, seed=0, gamma=_default_gamma,
+               linear_forgetting=_default_linear_forgetting):
+    """Health-hook diagnostics (``obs/health.py``): the good/bad γ-split
+    TPE would compute on the current history, on the host.
+
+    Follows :meth:`_TpeKernel._split`'s default ``'sqrt'`` schedule
+    (``n_below = min(ceil(gamma·sqrt(N)), LF, N)``).  The split is
+    *degenerate*, the surrogate pair carrying no ranking signal, when the
+    below set has fewer than two members or the losses have no spread."""
+    h = trials.history(domain.cs)
+    ok = np.asarray(h["ok"], bool)
+    loss = np.sort(np.asarray(h["loss"], np.float64)[ok])
+    n_ok = int(loss.shape[0])
+    out = {"backend": "tpe", "n_obs": n_ok, "gamma": float(gamma)}
+    if n_ok == 0:
+        out["insufficient"] = True
+        return out
+    n_below = int(np.ceil(gamma * np.sqrt(n_ok)))
+    n_below = min(n_below, int(linear_forgetting), n_ok)
+    spread = float(loss[-1] - loss[0])
+    out.update({
+        "n_below": n_below,
+        "n_above": n_ok - n_below,
+        "loss_spread": spread,
+        "below_mean": float(loss[:n_below].mean()) if n_below else None,
+        "above_mean": (float(loss[n_below:].mean())
+                       if n_ok > n_below else None),
+        "split_degenerate": n_below < 2 or spread <= _TINY,
+    })
+    return out
+
+
+suggest.introspect = introspect

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, and ``chip_smoke.py`` and the card's tests (``tests_torch_cuda/``)
-neither."""
+neither; and it reads none of the JAX package's environment switches
+(their prefix appears nowhere in its sources)."""
 
 import ast
 import os
@@ -15,6 +16,9 @@ PORT_FILES = sorted((ROOT / "hyperopt_tpu_torch").rglob("*.py")) \
     + sorted((ROOT / "tests_torch_cuda").glob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "chip_ei_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "hyperopt_tpu")
+# The JAX package's environment switches; the port's are arguments and
+# setters.
+ENV_PREFIX = "HYPEROPT_TPU_"
 
 
 def _imported_roots(path):
@@ -34,6 +38,19 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES
+                         + sorted((ROOT / "hyperopt_tpu_torch").rglob("*.cu")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_environment_switch_in_source(path):
+    text = path.read_text()
+    if path.suffix == ".py":
+        consts = [n.value for n in ast.walk(ast.parse(text))
+                  if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                  and ENV_PREFIX in n.value]
+        assert not consts, f"{path.name} names {consts}"
+    assert ENV_PREFIX not in text, f"{path.name} mentions {ENV_PREFIX}"
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"
@@ -42,9 +59,11 @@ def test_imports_with_jax_blocked():
         "import hyperopt_tpu_torch, hyperopt_tpu_torch.convert, chip_smoke\n"
         "import hyperopt_tpu_torch.ops.ei_scores, hyperopt_tpu_torch.history\n"
         "import hyperopt_tpu_torch.device, hyperopt_tpu_torch.fleet\n"
+        "import hyperopt_tpu_torch.obs, hyperopt_tpu_torch.obs.devtel\n"
+        "import hyperopt_tpu_torch.obs.trace, hyperopt_tpu_torch.faults\n"
         "sys.path.insert(0, 'tests_torch_cuda')\n"
         "import conftest, test_torch_cuda_device, test_torch_cuda_ei_scores\n"
-        "import test_torch_cuda_fleet\n"
+        "import test_torch_cuda_fleet, test_torch_cuda_obs\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hyperopt_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
