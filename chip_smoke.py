@@ -87,11 +87,27 @@ Phases, each fatal on failure:
                events, cost ledger) and disarmed: host ms per step over
                the same steps, in turns, and the hooks' own time by
                cProfile.
-9. card_tests  ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
+9. pipeline    the pipelined loop and the pool at the same width, 64 trials
+               after the 1,000-trial history with the objective plus a
+               10 ms sleep: (a) serial, (b) ``overlap_suggest``, (c) depth
+               2 x 2 evaluators, (d) depth 4 x 4, (e) depth 2 with batches
+               of 8, (f) ``PoolTrials(4, "process")`` with CUDA live in
+               this process, (g) a thread pool cut by ``fmin(timeout=)``.
+               No trial is left NEW or RUNNING, no tid appears twice, the
+               losses of (a)-(f) are finite; in (a)-(e) the EI kernel runs
+               once per TPE step and no slot fails; (b) lands the trials
+               of the depth-1 overlap loop written out inline; two depth-2
+               runs with one evaluator land the same trials; each of (f)'s
+               trials runs in a forked child; a warm dispatch and its copy
+               to the host run under ``set_sync_debug_mode("error")``.
+               Trials/s, occupancy, stalls, fetch waits and host ms per
+               dispatch of each run.
+10. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
                and every collected test passed.
 
-Prints the card's name and power limit first, one ``{"kernels": [...]}``
-JSON line before the last, and as the last line
+Prints the card's name and power limit first and again before the
+kernels line, one ``{"kernels": [...]}`` JSON line before the last, and
+as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
 there is no CUDA device or the package is missing.
 """
@@ -189,6 +205,13 @@ COHORT = 8
 OBS_RUN = 1000
 OBS_LANES = 8
 OBS_SOLO_LANES = (0, OBS_LANES - 1)
+# pipeline: trials each run adds after the 1,000-trial history, the sleep
+# the objective adds (a cheap user objective of the order of the hosted
+# step), the pool's width and the cut of run (g).
+PIPE_RUN = 64
+PIPE_SLEEP_S = 0.010
+PIPE_POOL = 4
+PIPE_TIMEOUT_S = 2.0
 # Kernel symbol of each lowering, as the profiler names it.
 KERNEL_SYMBOLS = {"f32": "ei_scores_kernel<false>",
                   "bf16": "ei_scores_kernel<true>",
@@ -580,11 +603,15 @@ def phase_suggest_step(dev):
 def profiled(fn):
     """Run ``fn()`` under ``torch.profiler`` and synchronize.  Returns
     ``(wall_ms, [(kernel name, launches, device ms)])`` for every CUDA
-    kernel the profiler saw, replayed graphs' kernels included."""
+    kernel the profiler saw, replayed graphs' kernels included.  The
+    session opens with ``obs_trace.profiler_lead_in``, whose empty kernels
+    are left out: without it the profiler now and then lost the records
+    of a session's first moments."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
+        obs_trace.profiler_lead_in(torch.cuda.current_device())
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -593,7 +620,8 @@ def profiled(fn):
                 (getattr(e, "self_device_time_total", None)
                  or getattr(e, "self_cuda_time_total", 0)) / 1e3)
                for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and obs_trace.LEAD_IN_KERNEL not in e.key]
     return wall_ms, kernels
 
 
@@ -1593,6 +1621,351 @@ def phase_obs(dev):
     return tally.rows()
 
 
+def sleepy_objective(cfg):
+    """:func:`objective` plus a fixed sleep (it releases the interpreter
+    lock, as waiting on I/O or on the card does)."""
+    time.sleep(PIPE_SLEEP_S)
+    return objective(cfg)
+
+
+def forked_objective(cfg):
+    """:func:`sleepy_objective` reporting where it ran: its pid, and
+    whether it is a fork of a process with a live CUDA context (a flag
+    read; any CUDA call would raise there)."""
+    return {"loss": sleepy_objective(cfg), "status": base.STATUS_OK,
+            "attachments": {"pid": os.getpid(),
+                            "bad_fork": bool(torch.cuda._is_in_bad_fork())}}
+
+
+class CountedTpe:
+    """``tpe.suggest``'s four halves at ``n_EI_candidates=N_CAND`` with its
+    TPE dispatches counted: each pending handle records how many
+    proposals it asked for."""
+
+    def __init__(self):
+        self.sizes = []
+
+    def algo(self):
+        def dispatch(new_ids, domain, trials, seed):
+            handle = tpe.suggest_dispatch(new_ids, domain, trials, seed,
+                                          n_EI_candidates=N_CAND)
+            if handle[0] == "pending":
+                self.sizes.append(len(new_ids))
+            return handle
+
+        def suggest(new_ids, domain, trials, seed):
+            return tpe.suggest_materialize(
+                dispatch(new_ids, domain, trials, seed))
+
+        suggest.dispatch = dispatch
+        suggest.materialize = tpe.suggest_materialize
+        suggest.start_transfer = tpe.suggest_start_transfer
+        suggest.handle_ready = tpe.suggest_handle_ready
+        return suggest
+
+    def steps(self):
+        """TPE steps the dispatches ran: one per proposal, a batch of
+        ``n`` running the next power of two."""
+        return sum(tpe._batch_size_for(n) for n in self.sizes)
+
+
+class observed:
+    """The raw values every registry histogram observed inside the block,
+    by name (the registry keeps bucket bounds only)."""
+
+    def __enter__(self):
+        self.values = {}
+        self._orig = orig = metrics.Histogram.observe
+        values = self.values
+
+        def observe(h, v):
+            values.setdefault(h.name, []).append(v)
+            orig(h, v)
+
+        metrics.Histogram.observe = observe
+        return self
+
+    def __exit__(self, *exc):
+        metrics.Histogram.observe = self._orig
+
+
+def pct(values, q):
+    return float(np.percentile(values, q)) if values else float("nan")
+
+
+def reference_overlap(history0, space, dev, seed):
+    """The depth-1 overlap loop, inline, on the card (the port's copy of
+    ``tests/test_pipeline.py::_reference_overlap_stream``): materialize the
+    pending proposal, insert it, dispatch the next on the just-inserted NEW
+    trial, then evaluate; one ``rstate`` draw per dispatch, before the
+    ids."""
+    domain = base.Domain(objective, space)
+    domain.cs.device = dev
+    trials = base.trials_from_docs(copy.deepcopy(history0))
+    rstate = np.random.default_rng(seed)
+    max_evals = N_HISTORY + PIPE_RUN
+    pending = None
+
+    def n_done():
+        return sum(d["state"] in (base.JOB_STATE_DONE, base.JOB_STATE_ERROR)
+                   for d in trials._dynamic_trials)
+
+    while n_done() < max_evals:
+        remaining = max_evals - len(trials._dynamic_trials)
+        n_to_enqueue = min(1, remaining)
+        if pending is not None:
+            docs = tpe.suggest.materialize(pending)[:n_to_enqueue]
+            pending = None
+        else:
+            s = int(rstate.integers(2 ** 31 - 1))
+            ids = trials.new_trial_ids(n_to_enqueue)
+            trials.refresh()
+            docs = tpe.suggest(ids, domain, trials, s,
+                               n_EI_candidates=N_CAND)
+        if not docs:
+            break
+        trials.insert_trial_docs(docs)
+        trials.refresh()
+        if remaining > n_to_enqueue:
+            s = int(rstate.integers(2 ** 31 - 1))
+            ids = trials.new_trial_ids(min(1, remaining - n_to_enqueue))
+            pending = tpe.suggest.dispatch(ids, domain, trials, s,
+                                           n_EI_candidates=N_CAND)
+        for doc in trials._dynamic_trials:
+            if doc["state"] == base.JOB_STATE_NEW:
+                doc["result"] = domain.evaluate(
+                    base.spec_from_misc(doc["misc"]),
+                    base.Ctrl(trials, current_trial=doc))
+                doc["state"] = base.JOB_STATE_DONE
+        trials.refresh()
+    return trials
+
+
+def check_settled(what, trials, finite=True):
+    """No trial NEW or RUNNING, no tid twice, finite losses (when
+    ``finite``) on every DONE trial."""
+    tids = [d["tid"] for d in trials]
+    if len(set(tids)) != len(tids):
+        fail(f"pipeline {what}: duplicate tids")
+    states = {d["state"] for d in trials}
+    if states & {base.JOB_STATE_NEW, base.JOB_STATE_RUNNING}:
+        fail(f"pipeline {what}: trials left NEW or RUNNING")
+    if finite and any(d["state"] != base.JOB_STATE_DONE
+                      or not math.isfinite(d["result"]["loss"])
+                      for d in trials):
+        fail(f"pipeline {what}: a trial is not DONE with a finite loss")
+
+
+def sync_free_dispatch(space, history0, dev):
+    """One full-width TPE dispatch and ``start_transfer`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, on a warm kernel and a
+    warm ring, with new rows to append and trials in flight: neither the
+    upload, the fantasy overlay, the step nor the copy may synchronize."""
+    domain = base.Domain(objective, space)
+    domain.cs.device = dev
+    trials = base.trials_from_docs(copy.deepcopy(history0))
+    cs = domain.cs
+    tpe.suggest_materialize(tpe.suggest_dispatch(
+        trials.new_trial_ids(1), domain, trials, 1, n_EI_candidates=N_CAND))
+    more = synthetic_trials(cs, 8, 9, dev)
+    docs = copy.deepcopy(list(more))
+    for i, d in enumerate(docs):
+        d["tid"] = d["misc"]["tid"] = N_HISTORY + i
+        for k in d["misc"]["idxs"]:
+            if d["misc"]["idxs"][k]:
+                d["misc"]["idxs"][k] = [d["tid"]]
+        if i >= 5:
+            d["state"] = base.JOB_STATE_RUNNING
+            d["result"] = {"status": base.STATUS_RUNNING}
+    trials.insert_trial_docs(docs)
+    trials.refresh()
+    b0 = history.upload_bytes
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = tpe.suggest_dispatch(trials.new_trial_ids(1), domain, trials,
+                                      2, n_EI_candidates=N_CAND)
+        tpe.suggest_start_transfer(handle)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    pending = handle[3]
+    if handle[0] != "pending" or pending.event is None or \
+            not pending.host.is_pinned():
+        fail("pipeline: the dispatch's copy did not start into pinned "
+             "memory")
+    pending.event.synchronize()
+    if not tpe.suggest_handle_ready(handle):
+        fail("pipeline: a handle whose event passed is not ready")
+    row = pending.rows.cpu().numpy()
+    got = tpe.suggest_materialize(handle)[0]["misc"]["vals"]
+    if not np.array_equal(pending.host.numpy(), row) or in_bounds(cs, row):
+        fail("pipeline: the pinned copy differs from the rows on the card")
+    p = cs.n_params
+    uploaded = history.upload_bytes - b0
+    if uploaded != 5 * history._row_bytes(p) + 3 * (4 * p + p):
+        fail(f"pipeline: the dispatch uploaded {uploaded} bytes, wanted 5 "
+             f"new rows and 3 fantasy rows")
+    print(f"pipeline: a warm full-width dispatch (5 new rows appended, 3 "
+          f"trials in flight overlaid, {uploaded} bytes uploaded) and its "
+          f"start_transfer ran under set_sync_debug_mode('error'); the "
+          f"pinned copy equals the card's rows ({len(got)} labels)")
+
+
+def phase_pipeline(dev):
+    """The pipelined loop and the pool at full width, runs (a) to (g).
+    Returns ``{lowering: (launches, 0, 0)}`` over its runs."""
+    space = flagship_space()
+    cs = compile_space(space)
+    history0 = list(synthetic_trials(cs, N_HISTORY, 4, dev))
+    tally = Tally()
+    reg = metrics.registry()
+    t_phase = time.perf_counter()
+    target = N_HISTORY + PIPE_RUN
+    stalls = ("pipeline.stall.suggest_bound", "pipeline.stall.eval_bound")
+    guards = ("pipeline.slot.failed", "pipeline.fallbacks")
+
+    def fresh(cls=None, **kw):
+        t = ho.Trials() if cls is None else cls(**kw)
+        t.insert_trial_docs(copy.deepcopy(history0))
+        t.refresh()
+        return t
+
+    def run(what, trials, algo, obj=sleepy_objective, **kw):
+        c0 = dict(reg.snapshot()["counters"])
+        with observed() as seen:
+            t0 = time.perf_counter()
+            tally.counted("f32", lambda: ho.fmin(
+                obj, space, algo=algo, max_evals=target, trials=trials,
+                rstate=np.random.default_rng(21), device=dev,
+                show_progressbar=False, **kw))
+            wall = time.perf_counter() - t0
+        c1 = reg.snapshot()["counters"]
+        moved = {k: c1.get(k, 0.0) - c0.get(k, 0.0)
+                 for k in stalls + guards}
+        n_new = len(trials) - N_HISTORY
+        return {"what": what, "wall": wall, "rate": n_new / wall,
+                "n": n_new, "moved": moved, "seen": seen.values,
+                "k1": ei_mod.ei_scores.launches_by["f32"],
+                "launches": dict(ei_mod.ei_scores.launches_by)}
+
+    results = {}
+    hosted = {"a": dict(overlap_depth=0), "b": dict(overlap_suggest=True),
+              "c": dict(overlap_depth=2, evaluators=2),
+              "d": dict(overlap_depth=4, evaluators=4),
+              "e": dict(overlap_depth=2, max_queue_len=8)}
+    streams = {}
+    for key, kw in hosted.items():
+        counter = CountedTpe()
+        trials = fresh()
+        r = run(key, trials, counter.algo(), **kw)
+        check_settled(key, trials)
+        if r["n"] != PIPE_RUN:
+            fail(f"pipeline ({key}): {r['n']} new trials, wanted {PIPE_RUN}")
+        if r["launches"] != {k: counter.steps() * (k == "f32")
+                             for k in r["launches"]}:
+            fail(f"pipeline ({key}): K1 launched {r['launches']} times for "
+                 f"{counter.steps()} TPE steps in {len(counter.sizes)} "
+                 f"dispatches")
+        if any(r["moved"][g] for g in guards):
+            fail(f"pipeline ({key}): slot failures or a fallback: "
+                 f"{r['moved']}")
+        r["dispatches"] = len(counter.sizes)
+        results[key] = r
+        streams[key] = landed(trials, N_HISTORY)
+
+    # (b) against the inline depth-1 overlap loop, on the card.
+    ref = landed(reference_overlap(history0, space, dev, 21), N_HISTORY)
+    if streams["b"] != ref:
+        fail(f"pipeline (b): overlap_suggest differs from the inline "
+             f"overlap loop: {column_diffs(streams['b'], ref)}")
+    # Two more depth-2 runs with one evaluator: the same stream.
+    twice = []
+    for _ in range(2):
+        trials = fresh()
+        run("det", trials, CountedTpe().algo(), overlap_depth=2,
+            evaluators=1)
+        check_settled("depth-2 determinism", trials)
+        twice.append(landed(trials, N_HISTORY))
+    if twice[0] != twice[1]:
+        fail(f"pipeline: two depth-2 runs with one evaluator differ: "
+             f"{column_diffs(twice[0], twice[1])}")
+
+    # (f) a process pool with TPE on the card: CUDA is live in this
+    # process, and no child may touch it.
+    parent = os.getpid()
+    trials = fresh(ho.PoolTrials, parallelism=PIPE_POOL, execution="process")
+    results["f"] = run("f", trials, partial(tpe.suggest,
+                                            n_EI_candidates=N_CAND),
+                       obj=forked_objective)
+    check_settled("f", trials)
+    new = list(trials)[N_HISTORY:]
+    where = [trials.trial_attachments(d) for d in new]
+    if len(new) != PIPE_RUN or any(a["pid"] == parent or not a["bad_fork"]
+                                   for a in where):
+        fail("pipeline (f): trials not evaluated in forked children of "
+             "this CUDA process")
+    results["f"]["children"] = len({a["pid"] for a in where})
+
+    # (g) a thread pool cut by fmin(timeout=).
+    trials = fresh(ho.PoolTrials, parallelism=PIPE_POOL, execution="thread")
+    t0 = time.perf_counter()
+    tally.counted("f32", lambda: ho.fmin(
+        lambda cfg: (time.sleep(20 * PIPE_SLEEP_S), objective(cfg))[1],
+        space, algo=partial(tpe.suggest, n_EI_candidates=N_CAND),
+        max_evals=N_HISTORY + 100_000, trials=trials,
+        rstate=np.random.default_rng(22), device=dev, timeout=PIPE_TIMEOUT_S,
+        show_progressbar=False))
+    g_wall = time.perf_counter() - t0
+    check_settled("g", trials, finite=False)
+    new = list(trials)[N_HISTORY:]
+    done = [d for d in new if d["state"] == base.JOB_STATE_DONE]
+    cancelled = [d for d in new if d["state"] == base.JOB_STATE_ERROR]
+    if not done or any(d["misc"]["error"][0] != "Cancelled"
+                       for d in cancelled) or \
+            any(not math.isfinite(d["result"]["loss"]) for d in done):
+        fail(f"pipeline (g): {len(done)} done, {len(cancelled)} cancelled "
+             f"after the timeout")
+
+    sync_free_dispatch(space, history0, dev)
+
+    labels = {"a": "serial", "b": "overlap_suggest",
+              "c": "depth 2 x 2 evaluators", "d": "depth 4 x 4 evaluators",
+              "e": "depth 2, max_queue_len 8",
+              "f": f"PoolTrials({PIPE_POOL}, process)"}
+    for key in "abcdef":
+        r = results[key]
+        occ = r["seen"].get("pipeline.occupancy", [])
+        fetch = r["seen"].get("suggest.fetch_sync_ms", [])
+        disp = r["seen"].get("suggest.dispatch_ms", [])
+        extra = (f", {r['dispatches']} TPE dispatches"
+                 if "dispatches" in r else
+                 f", {r['children']} child pids")
+        print(f"pipeline ({key}) {labels[key]}: {r['n']} trials in "
+              f"{r['wall']:.3f} s = {r['rate']:.2f} trials/s; K1 launches "
+              f"{r['k1']}{extra}; occupancy p50 {pct(occ, 50):.2f} p95 "
+              f"{pct(occ, 95):.2f} ({len(occ)} samples); stalls "
+              f"suggest_bound {r['moved'][stalls[0]]:.0f} eval_bound "
+              f"{r['moved'][stalls[1]]:.0f}; fetch_sync_ms p50 "
+              f"{pct(fetch, 50):.4f} p95 {pct(fetch, 95):.4f} "
+              f"({len(fetch)} fetches); host ms per dispatch p50 "
+              f"{pct(disp, 50):.3f} p95 {pct(disp, 95):.3f}")
+    print(f"pipeline (g) PoolTrials({PIPE_POOL}, thread), fmin(timeout="
+          f"{PIPE_TIMEOUT_S}): returned after {g_wall:.3f} s with "
+          f"{len(done)} done and {len(cancelled)} cancelled, none left "
+          f"NEW or RUNNING")
+    fa = results["a"]["seen"].get("suggest.fetch_sync_ms", [])
+    fc = results["c"]["seen"].get("suggest.fetch_sync_ms", [])
+    print(f"pipeline: suggest.fetch_sync_ms p50/p95, serial (a) "
+          f"{pct(fa, 50):.4f}/{pct(fa, 95):.4f} against depth 2 x 2 (c) "
+          f"{pct(fc, 50):.4f}/{pct(fc, 95):.4f}; (c)/(a) trials/s "
+          f"{results['c']['rate'] / results['a']['rate']:.3f}, (b)/(a) "
+          f"{results['b']['rate'] / results['a']['rate']:.3f}; (b) equals "
+          f"the inline overlap loop, two depth-2 one-evaluator runs are "
+          f"identical; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return tally.rows()
+
+
 def phase_card_tests():
     """``python -m pytest tests_torch_cuda`` in a subprocess: it must exit
     0 with every collected test passed."""
@@ -1625,7 +1998,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1638,6 +2012,7 @@ def main():
     device_launches, solo_rates = phase_device_mode(dev, hosted)
     fleet_launches, fleet_times = phase_fleet(dev, solo_rates)
     obs_launches = phase_obs(dev)
+    pipeline_launches = phase_pipeline(dev)
     phase_card_tests()
     print(f"total seconds {time.perf_counter() - t0:.1f}")
     rows = []
@@ -1645,16 +2020,18 @@ def main():
         # Launches on the main paths, each counted from zero just before
         # its run: the fmin phase (f32), this lowering's liar_batch run,
         # device_mode's, the fleet's and obs's eager warm-up steps, the
-        # fleet's cohort dispatch and obs's hosted runs.  A capture records
+        # fleet's cohort dispatch, obs's hosted runs and the pipeline
+        # phase's runs.  A capture records
         # the launch into its graph without running it (graph_recorded);
         # graph_replays counts replays of graphs that hold the kernel, one
         # kernel run each (for all lanes) by the profiler's count in
         # device_mode (c), (d), fleet (c) and obs (a).  fleet_ms: the
         # kernel through its wrapper at 31·L columns.
         dev_launches, dev_recorded, dev_replays = (
-            a + b + c for a, b, c in zip(device_launches[low],
-                                         fleet_launches[low],
-                                         obs_launches[low]))
+            sum(parts) for parts in zip(device_launches[low],
+                                        fleet_launches[low],
+                                        obs_launches[low],
+                                        pipeline_launches[low]))
         n = (liar_launches[low] + (fmin_launches if low == "f32" else 0)
              + dev_launches)
         k = kernels[low]
@@ -1673,6 +2050,8 @@ def main():
                      "bound_ms_2048": k["bound_ms_2048"],
                      "launches_per_window": LAUNCHES_PER_WINDOW})
     print("kernels: " + ", ".join(r["name"] for r in rows))
+    # Again at the end, where a reader of the output's tail finds it.
+    print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,10 @@ device as CUDA-graph replays of the TPE step; the fleet (``fleet.py``:
 experiments as the lanes of one step.  ``obs`` holds the observability
 layer (events, metrics, ``fmin(trace_dir=)`` with ``torch.profiler``,
 health, bundles, device-mode telemetry) and ``faults`` the seeded fault
-points.  Entry points run on CUDA unless the caller passes
+points.  ``fmin(overlap_depth=, evaluators=)`` runs the pipelined loop
+(``pipeline.py``: suggests in flight on the card while objectives run),
+and ``PoolTrials`` (``parallel/``) evaluates trials in threads or forked
+children.  Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 """
 
@@ -42,17 +45,20 @@ from .fmin import (  # noqa: F401
     FMinIter,
     fmin,
     generate_trials_to_calculate,
+    partial,
     space_eval,
 )
+from .parallel import PoolTrials  # noqa: F401
 from .scope import scope  # noqa: F401
 from .space import CompiledSpace, compile_space  # noqa: F401
 from .utils.early_stop import no_progress_loss  # noqa: F401
 
 __all__ = [
-    "fmin", "fmin_device", "fmin_fleet", "FMinIter", "space_eval", "generate_trials_to_calculate",
+    "fmin", "fmin_device", "fmin_fleet", "FMinIter", "space_eval",
+    "generate_trials_to_calculate", "partial",
     "hp", "tpe", "rand", "scope", "history", "device", "fleet", "obs",
     "faults",
-    "Trials", "trials_from_docs", "Domain", "Ctrl",
+    "Trials", "trials_from_docs", "Domain", "Ctrl", "PoolTrials",
     "CompiledSpace", "compile_space", "no_progress_loss",
     "STATUS_NEW", "STATUS_RUNNING", "STATUS_SUSPENDED", "STATUS_OK",
     "STATUS_FAIL", "STATUS_STRINGS",

@@ -156,7 +156,16 @@ def _parse_doc_row(tvals, cs, vals, active, i):
 
 
 class Trials:
-    """In-memory trial database; the objective runs in-process."""
+    """In-memory trial database; the objective runs in-process.
+
+    Synchronous (``asynchronous = False``): ``FMinIter`` evaluates the
+    objective itself.  A subclass with ``asynchronous = True``
+    (``parallel.PoolTrials``) evaluates the docs ``fmin`` enqueues on its
+    own and is polled until they finish.  ``_lock`` (re-entrant) guards
+    insertion, ``refresh``, the state counts and the dense views, which
+    evaluator threads and the loop call concurrently."""
+
+    asynchronous = False
 
     def __init__(self, exp_key=None, refresh=True):
         self._ids = set()
@@ -397,7 +406,8 @@ class Trials:
 
     def fmin(self, fn, space, algo, max_evals, **kwargs):
         from .fmin import fmin as _fmin
-        return _fmin(fn, space, algo, max_evals, trials=self, **kwargs)
+        return _fmin(fn, space, algo, max_evals, trials=self,
+                     allow_trials_fmin=False, **kwargs)
 
 
 def trials_from_docs(docs, validate=True, **kwargs):
@@ -427,6 +437,11 @@ class Ctrl:
             return self.trials.attachments
         return self.trials.trial_attachments(self.current_trial)
 
+    def should_stop(self) -> bool:
+        """Cooperative cancellation: a long objective polls this and
+        returns early when it turns True.  ``parallel.PoolTrials`` rebinds
+        it per trial; by default it never does."""
+        return False
 
 
 class Domain:

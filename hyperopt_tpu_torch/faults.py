@@ -6,8 +6,9 @@ a schedule is armed for that point the call raises
 :class:`~hyperopt_tpu_torch.exceptions.InjectedFault`, otherwise it
 returns after one module-global boolean check.
 
-The port instruments ``objective.call`` (the top of ``Domain.evaluate``)
-and ``flight.dump`` (inside a flight-recorder dump); :data:`FAULT_POINTS`
+The port instruments ``objective.call`` (the top of ``Domain.evaluate``),
+``pipeline.dispatch`` (before each dispatch of the pipelined loop) and
+``flight.dump`` (inside a flight-recorder dump); :data:`FAULT_POINTS`
 keeps the JAX package's whole catalog, whose other points belong to
 slices not ported yet.
 
@@ -27,8 +28,10 @@ Configuration::
 skipping the first ``after`` calls.  Each point draws from its own
 ``random.Random`` seeded by ``seed`` and the point's name, so one point's
 calls never perturb another's schedule and a seed replays the same faults
-as the JAX package does.  The JAX package also arms schedules from its
-environment, for its worker subprocesses; the port has none yet.
+as the JAX package does.  A ``PoolTrials`` child is forked and inherits
+the armed schedules in memory (each child its own copy of the tallies).
+The JAX package also arms schedules from its environment, for its
+separately launched file and network workers; the port has none yet.
 
 Every injection increments ``faults.injected`` and
 ``faults.injected.<point>`` in :mod:`~hyperopt_tpu_torch.obs.metrics` and

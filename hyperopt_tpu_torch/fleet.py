@@ -35,10 +35,8 @@ and ``fleet.padding_waste`` gauges, and each cohort emits a
 slab with a lane axis (``obs/devtel.py``): each lane's info gets its slab
 reduced over the run, equal bit for bit to its solo run's.
 
-Not in this slice: ``mesh=`` (the dispatch slice), the asynchronous halves
-of the algorithm (``start_transfer``/``handle_ready``, the pipeline
-slice), the service's cohort gate (the service slice) and
-``multivariate`` (the TPE slice).
+Not in this slice: ``mesh=`` (the dispatch slice), the service's cohort
+gate (the service slice) and ``multivariate`` (the TPE slice).
 """
 
 from __future__ import annotations
@@ -148,21 +146,33 @@ def cohort_tier(b: int) -> int:
 class _CohortResult:
     """The device rows ``[B, m, P]`` of one cohort dispatch, shared by its
     members' handles: the first :func:`suggest_materialize` fetches them
-    all (one sync for the cohort), the others read the host copy."""
+    all (one sync for the cohort), the others read the host copy.  One
+    pinned copy and one event serve the whole cohort
+    (``tpe._PendingRows``): the first member's ``start_transfer`` starts
+    it, the others find it started."""
 
-    __slots__ = ("rows_b", "_host", "_lock")
+    __slots__ = ("rows", "_host", "_lock")
 
     def __init__(self, rows_b):
-        self.rows_b = rows_b
+        self.rows = tpe._PendingRows(rows_b)
         self._host = None
         self._lock = threading.Lock()
 
     def force(self):
         with self._lock:
             if self._host is None:
-                self._host = self.rows_b.cpu().numpy()
-                self.rows_b = None
+                self._host = self.rows.fetch()
+                self.rows = None
             return self._host
+
+    def start_transfer(self):
+        with self._lock:
+            if self._host is None:
+                self.rows.start_transfer()
+
+    def ready(self) -> bool:
+        with self._lock:
+            return self._host is not None or self.rows.ready()
 
 
 class _CohortState:
@@ -419,9 +429,10 @@ class CohortScheduler:
         """A ``tpe.suggest``-style algorithm bound to this scheduler, for
         ``fmin``'s ``algo=``: each call is a one-request batch (a lone loop
         gets exactly ``tpe.suggest``'s proposals; several loops sharing one
-        scheduler each plan their own batch).  It carries ``dispatch`` and
-        ``materialize``; the asynchronous halves wait for the pipeline
-        slice."""
+        scheduler each plan their own batch).  It carries the four halves
+        of ``tpe.suggest`` (``dispatch``, ``materialize``,
+        ``start_transfer``, ``handle_ready``), so that the pipelined loop
+        (``pipeline.py``) drives cohorts as it drives solo TPE."""
 
         def _dispatch(new_ids, domain, trials, seed, **kw):
             return self.suggest_dispatch(
@@ -433,6 +444,8 @@ class CohortScheduler:
 
         _suggest.dispatch = _dispatch
         _suggest.materialize = suggest_materialize
+        _suggest.start_transfer = suggest_start_transfer
+        _suggest.handle_ready = suggest_handle_ready
         return _suggest
 
 
@@ -447,6 +460,22 @@ def suggest_materialize(handle):
     rows = result.force()[lane][:len(new_ids)]
     return base.docs_from_samples(cs, new_ids, rows, cs.active_mask_host(rows),
                                   exp_key=exp_key)
+
+
+def suggest_start_transfer(handle):
+    """Start the copy of a cohort's rows to the host (once per cohort), or
+    a solo handle's (``tpe.suggest_start_transfer``)."""
+    if handle[0] != "fleet":
+        return tpe.suggest_start_transfer(handle)
+    handle[3][0].start_transfer()
+    return handle
+
+
+def suggest_handle_ready(handle) -> bool:
+    """True when materializing the handle will not wait on the device."""
+    if handle[0] != "fleet":
+        return tpe.suggest_handle_ready(handle)
+    return handle[3][0].ready()
 
 
 # -- whole runs in lockstep ---------------------------------------------------

@@ -1,9 +1,11 @@
-"""``fmin``: the serial optimization loop and the public API.
+"""``fmin``: the optimization loop and the public API.
 
-Counterpart of ``hyperopt_tpu/fmin.py`` for the hosted, serial loop: up
-to ``max_queue_len`` trials are suggested in one call of the algo (TPE
-proposes a batch by its constant-liar scan), then evaluated in-process
-and recorded.  The
+Counterpart of ``hyperopt_tpu/fmin.py``.  The hosted loop suggests up to
+``max_queue_len`` trials in one call of the algo (TPE proposes a batch by
+its constant-liar scan), then evaluates and records them; the pipelined
+loop (``overlap_depth=``, ``evaluators=``, ``pipeline.py``) keeps several
+suggests in flight while objectives run; an asynchronous ``Trials``
+(``parallel.PoolTrials``) evaluates the trials itself.  The
 plugin boundaries are the same: ``algo`` is any
 ``suggest(new_ids, domain, trials, seed) -> docs`` callable (bind
 hyperparameters with ``functools.partial``), ``trials`` a
@@ -49,7 +51,7 @@ from .base import (
     Trials,
     coarse_utcnow,
 )
-from .exceptions import AllTrialsFailed
+from .exceptions import AllTrialsFailed, is_transient
 from .obs import context as _context
 from .obs import flight as _flight
 from .obs import metrics as _metrics
@@ -82,9 +84,20 @@ def generate_trials_to_calculate(points, exp_key=None):
 
 
 class FMinIter:
-    """The serial loop: suggest up to ``max_queue_len`` trials, evaluate
-    them, record them, until ``max_evals`` trials are done or a stop
-    condition fires."""
+    """The optimization loop.
+
+    Each batch suggests up to ``max_queue_len`` trials in one call of the
+    algo, then evaluates and records them, until ``max_evals`` trials are
+    done or a stop condition fires.  Synchronous trials are evaluated
+    here (``serial_evaluate``); an asynchronous ``Trials``
+    (``parallel.PoolTrials``) is only given the docs and polled every
+    ``poll_interval_secs``.  ``overlap_depth=D`` (``overlap_suggest=True``
+    is ``D = 1``) with a dispatch-capable algo runs the pipelined loop of
+    ``pipeline.py`` instead: up to D suggests in flight, ``evaluators``
+    objectives at once; any other algo runs the synchronous loop.
+    ``max_trial_retries`` re-runs a trial on the same point after a
+    transient error (``exceptions.is_transient``).  Iterating yields the
+    number of finished trials after each batch."""
 
     catch_eval_exceptions = False
     pickle_protocol = -1
@@ -92,7 +105,10 @@ class FMinIter:
     def __init__(self, algo, domain, trials, rstate=None,
                  early_stop_fn=None, trials_save_file="", max_evals=None,
                  timeout=None, loss_threshold=None, show_progressbar=True,
-                 max_queue_len=1, trace_dir=None):
+                 max_queue_len=1, trace_dir=None, asynchronous=None,
+                 poll_interval_secs=0.1, overlap_suggest=False,
+                 overlap_depth=None, evaluators=None,
+                 max_trial_retries=None):
         if int(max_queue_len) < 1:
             raise ValueError(f"max_queue_len must be >= 1, got "
                              f"{max_queue_len!r}")
@@ -105,16 +121,68 @@ class FMinIter:
         self.early_stop_fn = early_stop_fn
         self.early_stop_args: list = []
         self.trials_save_file = trials_save_file
+        if asynchronous is None:
+            asynchronous = bool(getattr(trials, "asynchronous", False))
+        self.asynchronous = asynchronous
+        self.poll_interval_secs = poll_interval_secs
         self.max_evals = max_evals
         self.timeout = timeout
         self.loss_threshold = loss_threshold
         self.start_time = time.time()
         self.show_progressbar = show_progressbar
+        # A trial whose evaluation raises a transient error runs again on
+        # the same point, up to this many times (misc.fail_count).
+        self.max_trial_retries = max(0, int(max_trial_retries or 0))
+        # serial_evaluate's scan cursor: _dynamic_trials only grows and a
+        # settled trial never goes back to NEW, so each batch resumes the
+        # scan for NEW trials where the last one stopped.
+        self._serial_cursor = 0
+        evaluators = 1 if evaluators is None else max(1, int(evaluators))
+        if overlap_depth is None:
+            depth = 1 if overlap_suggest else 0
+        else:
+            depth = max(0, int(overlap_depth))
+        if depth == 0 and evaluators > 1:
+            depth = 1       # concurrent evaluation needs the pipelined loop
+        self.overlap_depth = depth
+        self.evaluators = evaluators
+        self._pipeline = None
+        if depth > 0 and not self.asynchronous:
+            fn, kw = algo, {}
+            if isinstance(algo, partial) and not algo.args:
+                fn = algo.func
+                kw = dict(algo.keywords or {})
+            d = getattr(fn, "dispatch", None)
+            m = getattr(fn, "materialize", None)
+            if d is not None and m is not None:
+                from .pipeline import PipelinedExecutor
 
-    def serial_evaluate(self):
+                self._pipeline = PipelinedExecutor(
+                    self, depth=depth, evaluators=evaluators,
+                    dispatch=lambda ids, dom, tr, seed: d(
+                        ids, dom, tr, seed, **kw),
+                    materialize=m,
+                    handle_ready=getattr(fn, "handle_ready", None),
+                    start_transfer=getattr(fn, "start_transfer", None))
+        self.overlap_suggest = self._pipeline is not None
+
+    def serial_evaluate(self, N=-1):
         reg = _metrics.registry()
-        for trial in self.trials._dynamic_trials:
+        dyn = self.trials._dynamic_trials
+        # Everything before the cursor is settled (DONE/ERROR); it stalls,
+        # never reverses, on a RUNNING trial of an asynchronous store.
+        # fmin.scan_skipped counts the trials the cursor spared a visit.
+        cur = min(self._serial_cursor, len(dyn))
+        reg.counter("fmin.scan_skipped").inc(cur)
+        advance = True
+        for i in range(cur, len(dyn)):
+            trial = dyn[i]
             if trial["state"] != JOB_STATE_NEW:
+                if advance and trial["state"] in (JOB_STATE_DONE,
+                                                  JOB_STATE_ERROR):
+                    self._serial_cursor = i + 1
+                else:
+                    advance = False
                 continue
             trial["state"] = JOB_STATE_RUNNING
             trial["book_time"] = coarse_utcnow()
@@ -125,7 +193,20 @@ class FMinIter:
                 # Events emitted inside the objective attach to this trial
                 # through the ambient context (free when it is disarmed).
                 with _context.bind_doc(trial):
-                    result = self.domain.evaluate(spec, ctrl)
+                    while True:
+                        try:
+                            result = self.domain.evaluate(spec, ctrl)
+                            break
+                        except Exception as e:
+                            fail_count = trial["misc"].get("fail_count", 0)
+                            if not (is_transient(e)
+                                    and fail_count < self.max_trial_retries):
+                                raise
+                            trial["misc"]["fail_count"] = fail_count + 1
+                            reg.counter("fmin.trials.retried").inc()
+                            EVENTS.emit("trial_retry", trial=trial["tid"],
+                                        attempt=fail_count + 1,
+                                        error=type(e).__name__)
             except Exception as e:
                 logger.error("job exception: %s", e)
                 trial["state"] = JOB_STATE_ERROR
@@ -144,7 +225,36 @@ class FMinIter:
                 EVENTS.emit("trial_end", trial=trial["tid"], state="done",
                             loss=result.get("loss"))
                 reg.counter("fmin.trials.done").inc()
+            if advance:
+                self._serial_cursor = i + 1
+            N -= 1
+            if N == 0:
+                break
         self.trials.refresh()
+
+    def block_until_done(self):
+        """Evaluate what is still NEW, or, for an asynchronous store, poll
+        until nothing is NEW or RUNNING.  Past ``timeout`` the store's
+        in-flight trials are cancelled (``cancel_inflight``); a store that
+        cannot cancel is left with its stragglers."""
+        if not self.asynchronous:
+            self.serial_evaluate()
+            return
+        unfinished = (JOB_STATE_NEW, JOB_STATE_RUNNING)
+        cancelled = False
+        while self.trials.count_by_state_unsynced(unfinished) > 0:
+            if not cancelled and self.timeout is not None and \
+                    time.time() - self.start_time >= self.timeout:
+                self._cancel_inflight("fmin timeout")
+                cancelled = True
+            if cancelled and not callable(
+                    getattr(self.trials, "cancel_inflight", None)):
+                logger.warning(
+                    "fmin timeout with %d unfinished trial(s) left in the "
+                    "store", self.trials.count_by_state_unsynced(unfinished))
+                break
+            time.sleep(self.poll_interval_secs)
+            self.trials.refresh()
 
     def _stopped(self, n_done):
         if self.max_evals is not None and n_done >= self.max_evals:
@@ -163,8 +273,10 @@ class FMinIter:
 
     def run_one_batch(self):
         """Enqueue up to ``max_queue_len`` new trials from one call of the
-        algo, then evaluate and record the queued ones.  Returns True when
-        the algo is exhausted or early stop fired."""
+        algo, then evaluate the queued ones (or poll an asynchronous
+        store once).  Returns True when the algo is exhausted or early
+        stop fired.  The pipelined loop (``pipeline.py``) replaces this
+        when it is configured."""
         trials = self.trials
         stopped = False
         qlen = trials.count_by_state_unsynced((JOB_STATE_NEW,
@@ -194,8 +306,13 @@ class FMinIter:
                 with tracer.span("store"):
                     trials.insert_trial_docs(new_trials)
                     trials.refresh()
-        with tracer.span("evaluate"):
-            self.serial_evaluate()
+        if self.asynchronous:
+            with tracer.span("poll"):
+                time.sleep(self.poll_interval_secs)
+                trials.refresh()
+        else:
+            with tracer.span("evaluate"):
+                self.serial_evaluate()
         with tracer.span("save"):
             self._save_trials()
         if self.early_stop_fn is not None:
@@ -205,9 +322,19 @@ class FMinIter:
             self.early_stop_args = kwargs
             if stop:
                 logger.info("early stop triggered")
+                self._cancel_inflight("early stop")
                 stopped = True
         _metrics.registry().counter("fmin.batches").inc()
         return stopped
+
+    def _cancel_inflight(self, reason):
+        """Stop in-flight work on a store that can cancel it
+        (``PoolTrials.cancel_inflight``)."""
+        cancel = getattr(self.trials, "cancel_inflight", None)
+        if callable(cancel):
+            n = cancel(reason)
+            if n:
+                logger.info("cancelled %d in-flight trial(s): %s", n, reason)
 
     def n_done(self):
         return self.trials.count_by_state_unsynced(
@@ -227,10 +354,29 @@ class FMinIter:
         os.replace(tmp, self.trials_save_file)
         EVENTS.emit("store_flush", name="trials_save_file")
 
+    def run(self, N, block_until_done=True):
+        """Run about ``N`` more trials (within ``max_evals``)."""
+        target = self.n_done() + N
+        saved_max = self.max_evals
+        self.max_evals = target if saved_max is None else min(saved_max,
+                                                               target)
+        try:
+            self._loop()
+        finally:
+            self.max_evals = saved_max
+        if block_until_done:
+            self.block_until_done()
+
     def _loop(self):
         progress_ctx = default_callback if self.show_progressbar \
             else no_progress_callback
         with progress_ctx(initial=self.n_done(), total=self.max_evals) as prog:
+            if self._pipeline is not None:
+                if self._pipeline.run(prog) != "fallback":
+                    return self
+                # The executor hit its cap of consecutive slot failures,
+                # drained, and hands the rest of the run to this loop.
+                logger.warning("pipeline fell back to the synchronous loop")
             while not self._stopped(self.n_done()):
                 before = self.n_done()
                 stopped = self.run_one_batch()
@@ -240,8 +386,22 @@ class FMinIter:
                     prog.postfix(self.trials.best_trial["result"]["loss"])
                 except AllTrialsFailed:
                     pass
-                if stopped or after == before:
+                if stopped:
                     break
+                if after == before and not self.asynchronous:
+                    break       # no progress possible
+        return self
+
+    def __iter__(self):
+        """Step-wise iteration: yields the number of finished trials after
+        each batch."""
+        while not self._stopped(self.n_done()):
+            before = self.n_done()
+            stopped = self.run_one_batch()
+            yield self.n_done()
+            if stopped or (self.n_done() == before
+                           and not self.asynchronous):
+                break
 
     def exhaust(self):
         """Run until ``max_evals`` complete or a stop condition fires."""
@@ -249,6 +409,7 @@ class FMinIter:
             t0 = time.perf_counter()
             try:
                 self._loop()
+                self.block_until_done()
             except BaseException as e:
                 _flight.on_crash("fmin", e)
                 raise
@@ -285,13 +446,15 @@ def _traced(tracer):
 
 def fmin(fn, space, algo=None, max_evals=None,
          timeout=None, loss_threshold=None,
-         trials=None, rstate=None, pass_expr_memo_ctrl=None,
+         trials=None, rstate=None, allow_trials_fmin=True,
+         pass_expr_memo_ctrl=None,
          catch_eval_exceptions=False,
          verbose=True, return_argmin=True,
          points_to_evaluate=None,
          show_progressbar=True, early_stop_fn=None,
          trials_save_file="", device=None, max_queue_len=1, mode=None,
-         sync_stride=None, trace_dir=None):
+         sync_stride=None, trace_dir=None, overlap_suggest=False,
+         overlap_depth=None, evaluators=None, max_trial_retries=None):
     """Minimize ``fn`` over ``space`` using ``algo`` (default TPE).
 
     ``fn`` returns a float loss or a result dict with ``loss``/``status``;
@@ -305,6 +468,29 @@ def fmin(fn, space, algo=None, max_evals=None,
     is how many trials one call of the algo proposes (TPE: one batch of
     its constant-liar scan); 1 proposes one trial at a time.  Returns the
     best point (``return_argmin``) or the best loss.
+
+    ``overlap_depth=D`` runs the pipelined loop (``pipeline.py``): up to D
+    suggest dispatches in flight, each with its copy to the host started
+    at once (a pinned ``non_blocking`` copy and a CUDA event), while
+    ``evaluators=E`` threads run the objective and record through a
+    completion queue.  ``overlap_suggest=True`` is ``overlap_depth=1,
+    evaluators=1`` and lands the trials of the depth-1 overlapped loop.
+    The in-flight posterior is up to D batches stale; constant-liar rows
+    for pending trials make up for it.  It needs a dispatch-capable algo
+    (``tpe.suggest``, ``CohortScheduler.algo()``, optionally
+    ``functools.partial``-bound); any other runs the ordinary loop.  With
+    one evaluator the run is a function of ``rstate``.  Evaluator threads
+    share the interpreter lock with the dispatch: an objective that
+    releases it (sleep, I/O, card work) overlaps, pure Python does not.
+
+    ``max_trial_retries=N`` runs a trial again on the same point, up to N
+    times, when its evaluation raises a transient error
+    (``exceptions.is_transient``: an injected fault,
+    ``TransientEvaluationError``); ``misc.fail_count`` counts the retries.
+    Default 0.
+
+    A ``trials`` whose class has its own ``fmin`` (``parallel.PoolTrials``)
+    runs the call through it, unless ``allow_trials_fmin=False``.
 
     ``trace_dir`` traces the run into that directory: span totals
     (``loop_trace.json``), the event log (``loop_events.jsonl`` and its
@@ -324,7 +510,9 @@ def fmin(fn, space, algo=None, max_evals=None,
     (``functools.partial(tpe.suggest, ...)``).  Host-loop options raise
     there: ``points_to_evaluate``, ``pass_expr_memo_ctrl``,
     ``catch_eval_exceptions``, ``trials_save_file``, ``max_queue_len >
-    1``, and algo keywords the device loop cannot honour (``resident``).
+    1``, the pipeline's and the retries' arguments, an asynchronous
+    ``trials``, and algo keywords the device loop cannot honour
+    (``resident``).
     """
     if mode not in (None, "host", "device"):
         raise ValueError(f"mode must be None, 'host' or 'device', got "
@@ -362,6 +550,10 @@ def fmin(fn, space, algo=None, max_evals=None,
             ("points_to_evaluate", points_to_evaluate),
             ("pass_expr_memo_ctrl", pass_expr_memo_ctrl),
             ("catch_eval_exceptions", catch_eval_exceptions or None),
+            ("overlap_suggest", overlap_suggest or None),
+            ("overlap_depth", overlap_depth),
+            ("evaluators", evaluators),
+            ("max_trial_retries", max_trial_retries),
             ("trials_save_file", trials_save_file or None),
             ("max_queue_len", max_queue_len if max_queue_len != 1 else None),
         ) if v is not None]
@@ -373,6 +565,9 @@ def fmin(fn, space, algo=None, max_evals=None,
         if max_evals is None:
             raise ValueError("mode='device' requires max_evals (the "
                              "captured loop needs a trial budget)")
+        if getattr(trials, "asynchronous", False):
+            raise ValueError("mode='device' evaluates on the device; "
+                             "asynchronous Trials do not apply")
         algo_kw = _device_algo_kwargs(algo)
         from .device import fmin_trials as _device_fmin_trials
 
@@ -386,6 +581,17 @@ def fmin(fn, space, algo=None, max_evals=None,
                 **algo_kw)
         return _result(trials, return_argmin)
 
+    if allow_trials_fmin and type(trials).fmin is not Trials.fmin:
+        return trials.fmin(
+            fn, space, algo=algo, max_evals=max_evals, timeout=timeout,
+            loss_threshold=loss_threshold, rstate=rstate,
+            pass_expr_memo_ctrl=pass_expr_memo_ctrl,
+            verbose=verbose, catch_eval_exceptions=catch_eval_exceptions,
+            return_argmin=return_argmin, show_progressbar=show_progressbar,
+            early_stop_fn=early_stop_fn, trials_save_file=trials_save_file,
+            max_trial_retries=max_trial_retries, trace_dir=trace_dir,
+            device=device)
+
     domain = Domain(fn, space, pass_expr_memo_ctrl=pass_expr_memo_ctrl)
     domain.cs.device = dev
 
@@ -395,7 +601,10 @@ def fmin(fn, space, algo=None, max_evals=None,
                     max_evals=max_evals, timeout=timeout,
                     loss_threshold=loss_threshold,
                     show_progressbar=show_progressbar and verbose,
-                    max_queue_len=max_queue_len, trace_dir=trace_dir)
+                    max_queue_len=max_queue_len, trace_dir=trace_dir,
+                    overlap_suggest=overlap_suggest,
+                    overlap_depth=overlap_depth, evaluators=evaluators,
+                    max_trial_retries=max_trial_retries)
     rval.catch_eval_exceptions = catch_eval_exceptions
     rval.exhaust()
     rval._save_trials()

@@ -38,10 +38,11 @@ with ``resident=False``.
 Counters (plain ints, like ``ei_scores.launches``): ``upload_bytes``
 (every host→device byte this module moves), ``append_hits`` (calls or
 cohort lanes served by the delta path), ``rebuilds`` (full re-uploads of a
-ring or a lane), ``evicted`` (rings dropped by the LRU cap).  Each has a
-registry twin, ``history.<name>`` (``obs/metrics.py``); a reorder bumps
-``history.order_violations`` and emits a ``history_order_violation``
-event before it raises.
+ring or a lane), ``evicted`` (rings dropped by the LRU cap),
+``fantasy_clipped`` (constant-liar rows that did not fit the bucket).
+Each has a registry twin, ``history.<name>`` (``obs/metrics.py``); a
+reorder bumps ``history.order_violations`` and emits a
+``history_order_violation`` event before it raises.
 """
 
 from __future__ import annotations
@@ -60,12 +61,13 @@ from .obs.events import EVENTS
 __all__ = ["device_history", "pregrow", "forget", "generation",
            "HistoryOrderError", "BatchedResident", "device_history_batched",
            "pregrow_batched", "KEEP", "upload_bytes", "append_hits",
-           "rebuilds", "evicted"]
+           "rebuilds", "evicted", "fantasy_clipped"]
 
 upload_bytes = 0
 append_hits = 0
 rebuilds = 0
 evicted = 0
+fantasy_clipped = 0
 
 
 def _bump(**deltas):
@@ -207,8 +209,17 @@ def _padded_history(h, n_cap):
 
 
 def _put(arrs, dev):
-    return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(dev)
-                 for a in arrs)
+    """Host arrays as tensors on ``dev``.  To a CUDA device each goes
+    through a pinned staging copy and a ``non_blocking`` upload on the
+    current stream: a pageable upload would synchronize the stream, and
+    with it wait for every step queued before it (the pipelined loop keeps
+    several in flight).  The staging block goes back to torch's pinned
+    allocator, which reuses it only after the upload's event has passed."""
+    if dev.type != "cuda":
+        return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+                     for a in arrs)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a)).pin_memory()
+                 .to(dev, non_blocking=True) for a in arrs)
 
 
 def _grow(bufs, cap):
@@ -258,7 +269,11 @@ def device_history(trials, cs, h, n_cap, fantasies=None, device=None,
 
     ``h`` is ``trials.history(cs)``.  ``fantasies`` is ``(pv f32[M, P],
     pa bool[M, P], lie)``: rows ``[n, n + M)`` of a copy get them, with
-    loss ``lie`` and ok True.  ``device`` defaults to ``cs.device``.
+    loss ``lie`` and ok True.  A list of such slots (one per pending
+    batch of the pipelined loop, each with its own lie) is laid out from
+    row ``n`` on, each slot after the one before; rows past ``n_cap`` are
+    dropped and counted in ``fantasy_clipped``.  ``device`` defaults to
+    ``cs.device``.
     ``lru_cap > 0`` keeps at most that many rings resident over the calls
     that pass a cap (least recently used out first).  The tensors returned
     (without fantasies) are the ring's own, or a view of them: read them,
@@ -299,21 +314,37 @@ def device_history(trials, cs, h, n_cap, fantasies=None, device=None,
         out = st.bufs
     if st.cap > n_cap:
         out = tuple(b[:n_cap] for b in out)
-    if fantasies is not None and len(fantasies[0]):
-        pv, pa, lie = fantasies
-        m = len(pv)
-        if n + m > n_cap:
-            raise ValueError(f"{m} fantasy rows after {n} rows do not fit "
-                             f"n_cap={n_cap}")
-        hv, ha, hl, hok = (b.clone() for b in out)
-        pv_t, pa_t = _put((pv, pa), dev)
-        hv[n:n + m] = pv_t
-        ha[n:n + m] = pa_t
-        hl[n:n + m] = float(np.float32(lie))
-        hok[n:n + m] = True
-        _bump(upload_bytes=m * (p * 4 + p))
-        out = (hv, ha, hl, hok)
+    if fantasies is not None:
+        out = tuple(b.clone() for b in out)
+        _write_slots(out, fantasies, n, n_cap, p, dev)
     return out
+
+
+def _write_slots(bufs, fantasies, idx, n_cap, p, dev):
+    """Write constant-liar slots ``(pv, pa, lie)`` (one tuple or a list of
+    them) into ``bufs`` from row ``idx`` on, each slot after the one
+    before, with loss ``lie`` and ok True.  Rows past ``n_cap`` are
+    dropped and counted in ``fantasy_clipped``."""
+    hv, ha, hl, hok = bufs
+    for pv, pa, lie in (fantasies if isinstance(fantasies, list)
+                        else [fantasies]):
+        if not len(pv):
+            continue
+        room = n_cap - idx
+        if room <= 0:
+            _bump(fantasy_clipped=len(pv))
+            continue
+        if len(pv) > room:
+            _bump(fantasy_clipped=len(pv) - room)
+            pv, pa = pv[:room], pa[:room]
+        m = len(pv)
+        pv_t, pa_t = _put((pv, pa), dev)
+        hv[idx:idx + m] = pv_t
+        ha[idx:idx + m] = pa_t
+        hl[idx:idx + m] = float(np.float32(lie))
+        hok[idx:idx + m] = True
+        _bump(upload_bytes=m * (p * 4 + p))
+        idx += m
 
 
 def pregrow(trials, cs, n_cap, device=None):
@@ -477,28 +508,15 @@ def device_history_batched(store, lanes, n_cap, fantasies=None, gens=None,
 
 def _overlay_batched(bufs, lanes, fantasies, n_cap, p, dev):
     """Each lane's constant-liar slots, laid out from its last real row on
-    and clipped to the bucket, in a copy of the stacked rings."""
-    out = None
+    and clipped to the bucket (:func:`_write_slots`), in a copy of the
+    stacked rings."""
+    out = tuple(t.clone() for t in bufs)
     for i, f in enumerate(fantasies):
-        if f is None:
-            continue
-        pos = lanes[i]["vals"].shape[0] if isinstance(lanes[i], dict) else 0
-        for pv, pa, lie in (f if isinstance(f, list) else [f]):
-            m = min(len(pv), n_cap - pos)
-            if m <= 0:
-                continue
-            if out is None:
-                out = tuple(t.clone() for t in bufs)
-            hv, ha, hl, hok = out
-            pv_t, pa_t = _put((np.asarray(pv, np.float32)[:m],
-                               np.asarray(pa, bool)[:m]), dev)
-            hv[i, pos:pos + m] = pv_t
-            ha[i, pos:pos + m] = pa_t
-            hl[i, pos:pos + m] = float(np.float32(lie))
-            hok[i, pos:pos + m] = True
-            _bump(upload_bytes=m * (p * 4 + p))
-            pos += m
-    return bufs if out is None else out
+        if f is not None:
+            pos = (lanes[i]["vals"].shape[0] if isinstance(lanes[i], dict)
+                   else 0)
+            _write_slots(tuple(t[i] for t in out), f, pos, n_cap, p, dev)
+    return out
 
 
 def pregrow_batched(store, n_cap):

@@ -61,6 +61,27 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+# Empty kernels and the idle wait that open a CUDA profiler session.
+LEAD_IN_KERNELS = 8
+LEAD_IN_S = 0.02
+# The profiler's name for those kernels (``torch.cuda._sleep``).
+LEAD_IN_KERNEL = "spin_kernel"
+
+
+def profiler_lead_in(device):
+    """Open a CUDA profiler session with ``LEAD_IN_KERNELS`` empty kernels
+    and a ``LEAD_IN_S`` wait with the card idle.  Without them, on an
+    H100, a session now and then lost the kernel records of its first
+    moments (the first kernel, or milliseconds of replayed graphs, EI
+    kernels among them); with them, none were lost."""
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        for _ in range(LEAD_IN_KERNELS):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+    time.sleep(LEAD_IN_S)
+
+
 class Tracer:
     """Accumulates named wall-clock spans; optionally drives
     ``torch.profiler``.
@@ -127,10 +148,13 @@ class Tracer:
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
-        if self.device is not None and self.device.type == "cuda":
+        cuda = self.device is not None and self.device.type == "cuda"
+        if cuda:
             acts.append(ProfilerActivity.CUDA)
         prof = profile(activities=acts)
         prof.start()
+        if cuda:
+            profiler_lead_in(self.device)
         self._profiler = prof
 
     def stop_device_trace(self):

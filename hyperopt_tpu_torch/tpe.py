@@ -846,8 +846,8 @@ def suggest_dispatch(new_ids, domain, trials, seed,
 
     Handle: ``(tag, cs, new_ids, rows, exp_key)`` with ``rows`` a host
     ``(vals, active)`` pair ("ready": empty space or random startup) or
-    device rows not yet fetched ("pending": ``[P]`` for one proposal,
-    ``[m, P]`` for a batch)."""
+    a :class:`_PendingRows` over device rows not yet fetched ("pending":
+    ``[P]`` for one proposal, ``[m, P]`` for a batch)."""
     _check_ei_args(ei_impl, ei_precision, ei_topm)
     cs = domain.cs
     dev = resolve_device(cs.device)
@@ -900,7 +900,57 @@ def suggest_dispatch(new_ids, domain, trials, seed,
     dms = (perf_counter() - t_disp) * 1e3
     _obs_ms(reg, "suggest.dispatch_ms", dms)
     _costs.observe_dispatch(kern.cost_key, dms)
-    return ("pending", cs, list(new_ids), rows, exp_key)
+    return ("pending", cs, list(new_ids), _PendingRows(rows), exp_key)
+
+
+class _PendingRows:
+    """The device rows of a pending suggest handle and their way to the
+    host.
+
+    :meth:`start_transfer` copies them with ``non_blocking=True`` into a
+    host buffer from torch's pinned allocator, on the current stream of
+    their device (the stream that ran the step, queued after it), and
+    records an event after the copy; :meth:`ready` asks that event;
+    :meth:`fetch` waits on it and reads the buffer, and falls back to a
+    plain ``.cpu()`` only when no transfer was started.  The pinned
+    allocator keeps a block until the copies recorded on it have passed,
+    so a handle dropped with its copy in flight frees nothing the copy
+    still writes.  On the CPU there is nothing to start: the rows are
+    always ready."""
+
+    __slots__ = ("rows", "host", "event")
+
+    def __init__(self, rows):
+        self.rows = rows
+        self.host = None
+        self.event = None
+
+    def start_transfer(self):
+        if self.event is not None or self.rows.device.type != "cuda":
+            return
+        host = torch.empty(self.rows.shape, dtype=self.rows.dtype,
+                           pin_memory=True)
+        host.copy_(self.rows, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.rows.device))
+        self.host, self.event = host, event
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def fetch(self):
+        """The rows as a numpy array.  The wait (for the event, or for the
+        ``.cpu()`` copy) is the suggest step's one device sync, timed into
+        ``suggest.fetch_sync_ms``."""
+        t0 = perf_counter()
+        if self.event is not None:
+            self.event.synchronize()
+            vals = self.host.numpy()
+        else:
+            vals = self.rows.cpu().numpy()
+        _obs_ms(_metrics_registry(), "suggest.fetch_sync_ms",
+                (perf_counter() - t0) * 1e3)
+        return vals
 
 
 def _force_rows(handle):
@@ -911,10 +961,7 @@ def _force_rows(handle):
     host."""
     tag, cs, new_ids, rows = handle[:4]
     if tag == "pending":
-        t0 = perf_counter()
-        vals = rows.cpu().numpy()   # the suggest step's one device sync
-        _obs_ms(_metrics_registry(), "suggest.fetch_sync_ms",
-                (perf_counter() - t0) * 1e3)
+        vals = rows.fetch()
         if vals.ndim == 1:
             vals = vals[None, :]
         vals = vals[:len(new_ids)]
@@ -927,6 +974,25 @@ def suggest_materialize(handle):
     _, cs, new_ids, _rows, exp_key = handle
     vals, active = _force_rows(handle)
     return base.docs_from_samples(cs, new_ids, vals, active, exp_key=exp_key)
+
+
+def suggest_start_transfer(handle):
+    """Start the device→host copy of a pending handle's rows without
+    waiting (:meth:`_PendingRows.start_transfer`): the pipelined loop calls
+    it right after the dispatch, so that the copy runs behind the step
+    while the host evaluates objectives.  A no-op for ready handles and
+    on the CPU."""
+    if handle[0] == "pending":
+        handle[3].start_transfer()
+    return handle
+
+
+def suggest_handle_ready(handle) -> bool:
+    """True when :func:`suggest_materialize` will not wait on the device:
+    the event after the handle's copy has passed.  Ready handles, CPU
+    rows and handles whose transfer was never started report True (their
+    materialize may block)."""
+    return handle[0] != "pending" or handle[3].ready()
 
 
 def introspect(domain, trials, seed=0, gamma=_default_gamma,
@@ -961,4 +1027,8 @@ def introspect(domain, trials, seed=0, gamma=_default_gamma,
     return out
 
 
+suggest.dispatch = suggest_dispatch
+suggest.materialize = suggest_materialize
+suggest.start_transfer = suggest_start_transfer
+suggest.handle_ready = suggest_handle_ready
 suggest.introspect = introspect

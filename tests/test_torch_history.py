@@ -11,6 +11,8 @@ mirroring ``tests/test_history.py``.
   trials and after a deleted trial.
 * Transfer contract: the steady per-trial upload is O(P) bytes, not
   O(n_cap·P).
+* Multi-slot fantasy overlay: against JAX's ``history.device_history``
+  bit for bit, with the rows past the bucket clipped and counted alike.
 """
 
 import copy
@@ -20,7 +22,10 @@ import numpy as np
 import pytest
 import torch
 
+import hyperopt_tpu as hj
 import hyperopt_tpu_torch as ht
+from hyperopt_tpu import history as hj_hist
+from hyperopt_tpu.obs.metrics import registry as hj_registry
 from hyperopt_tpu_torch import history as rhist
 from hyperopt_tpu_torch import tpe
 from hyperopt_tpu_torch.space import compile_space
@@ -155,11 +160,74 @@ def test_forget_drops_state_and_bumps_generation(rng):
 
 
 def test_fantasies_that_do_not_fit_raise(rng):
+    """Fantasy rows past the bucket are clipped and counted, as in the JAX
+    package (they raised here before the multi-slot overlay); history rows
+    that do not fit the bucket still raise."""
     trials, cs = _T(), object()
     h = _h(rng, 30, 2)
-    fant = (np.zeros((3, 2), np.float32), np.ones((3, 2), bool), 0.0)
+    fant = (np.ones((3, 2), np.float32), np.ones((3, 2), bool), 0.5)
+    c0 = rhist.fantasy_clipped
+    vals, _, loss, ok = _ring(trials, cs, h, 32, fant)
+    assert rhist.fantasy_clipped == c0 + 1
+    np.testing.assert_array_equal(vals[30:].numpy(), np.ones((2, 2)))
+    assert loss[30:].tolist() == [0.5, 0.5] and ok[30:].all()
     with pytest.raises(ValueError):
-        _ring(trials, cs, h, 32, fant)
+        _ring(trials, cs, _h(rng, 40, 2), 32)
+
+
+def _jax_ring(trials, cs, h, cap, fant):
+    out = hj_hist.device_history(trials, cs, h, cap, fantasies=fant)
+    return [np.asarray(a) for a in out]
+
+
+def _jax_clipped():
+    return hj_registry().snapshot()["counters"].get(
+        "history.fantasy_clipped", 0.0)
+
+
+def _slots(rng, sizes, p):
+    return [(rng.standard_normal((m, p)).astype(np.float32),
+             rng.random((m, p)) < 0.7, np.float32(rng.standard_normal()))
+            for m in sizes]
+
+
+@pytest.mark.parametrize("sizes", [(10, 8, 20), (16, 8, 5), (3, 30)])
+def test_multi_slot_overlay_matches_jax(rng, sizes):
+    """1,000 rows in the 1,024 bucket and 2 to 3 fantasy slots, the last
+    running past the bucket (or starting past it): the same tensors as
+    JAX's ``history.device_history`` bit for bit, and the same count of
+    clipped rows."""
+    p, n, cap = 5, 1000, 1024
+    h = _h(rng, n, p)
+    slots = _slots(rng, sizes, p)
+    room = cap - n
+    clipped = max(0, sum(sizes) - room)
+    cj, ct = _jax_clipped(), rhist.fantasy_clipped
+    want = _jax_ring(hj.Trials(), object(), h, cap, slots)
+    got = _ring(ht.Trials(), object(), h, cap, slots)
+    assert _jax_clipped() - cj == rhist.fantasy_clipped - ct == clipped > 0
+    for g, w in zip(got, want):
+        assert g.dtype == torch.as_tensor(w).dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+    # The ring itself stays clean for the next append.
+    _check(ht.Trials(), object(), h, cap)
+
+
+def test_single_slot_overlay_is_unchanged(rng):
+    """One slot as a tuple or a one-element list: the single-slot result
+    the ring gave before (``_padded_history`` of the rows and the
+    fantasies), equal to JAX's."""
+    p, n, cap = 5, 1000, 1024
+    h = _h(rng, n, p)
+    (fant,) = _slots(rng, (7,), p)
+    trials, cs = _T(), object()
+    _check(trials, cs, h, cap, fant)
+    single = [t.numpy() for t in _ring(trials, cs, h, cap, fant)]
+    listed = [t.numpy() for t in _ring(trials, cs, h, cap, [fant])]
+    want = _jax_ring(hj.Trials(), object(), h, cap, fant)
+    for a, b, w in zip(single, listed, want):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, w)
 
 
 def test_reorder_raises_loudly(rng):

@@ -61,9 +61,11 @@ def test_imports_with_jax_blocked():
         "import hyperopt_tpu_torch.device, hyperopt_tpu_torch.fleet\n"
         "import hyperopt_tpu_torch.obs, hyperopt_tpu_torch.obs.devtel\n"
         "import hyperopt_tpu_torch.obs.trace, hyperopt_tpu_torch.faults\n"
+        "import hyperopt_tpu_torch.pipeline, hyperopt_tpu_torch.parallel\n"
         "sys.path.insert(0, 'tests_torch_cuda')\n"
         "import conftest, test_torch_cuda_device, test_torch_cuda_ei_scores\n"
         "import test_torch_cuda_fleet, test_torch_cuda_obs\n"
+        "import test_torch_cuda_pipeline\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hyperopt_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -125,7 +125,7 @@ def test_partial_batch_slices_the_surplus_rows():
     domain, trials = _done_trials(30)
     h5 = tpe_t.suggest_dispatch(list(range(30, 35)), domain, trials, 7,
                                 n_EI_candidates=32)
-    assert h5[0] == "pending" and tuple(h5[3].shape) == \
+    assert h5[0] == "pending" and tuple(h5[3].rows.shape) == \
         (8, domain.cs.n_params)
     v5, a5 = tpe_t._force_rows(h5)
     v8, _ = tpe_t.suggest_batch(list(range(30, 38)), domain, trials, 7,
