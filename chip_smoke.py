@@ -102,7 +102,28 @@ Phases, each fatal on failure:
                to the host run under ``set_sync_debug_mode("error")``.
                Trials/s, occupancy, stalls, fetch waits and host ms per
                dispatch of each run.
-10. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
+10. tpe_rest    the rest of TPE at the same width: (a) the hosted joint
+               step (``multivariate=True``): host ms, busy share and
+               kernels beside the factorized step's, K1 once per step,
+               card and CPU rows equal on a small step; (b) device mode,
+               joint: 16 trials at stride 1 after the 1,000-trial history
+               land the hosted joint run's, 256 from empty need one
+               capture and run K1 once per replay (profiler), trials/s and
+               card ms per replay beside the factorized step's, in turns;
+               (c) per EI lowering, ``fmin_fleet(multivariate=True)`` over
+               4 lanes lands each lane's solo run bit for bit, and a joint
+               ``CohortScheduler`` serves 8 experiments with one launch,
+               each row its solo ``tpe.suggest``'s; (d) ``split_impl=
+               "sort"`` and ``fused_step=False`` land the default's 256
+               trials, ``comp_sampler="gumbel"`` captures, stays in
+               bounds and its 4 fleet lanes equal their solo runs; card ms
+               per replay of each, in turns; (e) ``startup="qmc"``: the
+               card's 20 startup rows equal the CPU's, device mode refuses
+               it; (f) ``suggest_quantile`` at ``overlap_depth=2`` runs K1
+               once per TPE step, and the host ms of the first step past
+               the 1,024 bucket against a steady one, with and without the
+               next bucket's kernel built ahead (``_prewarm_async``).
+11. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
                and every collected test passed.
 
 Prints the card's name and power limit first and again before the
@@ -212,6 +233,20 @@ PIPE_RUN = 64
 PIPE_SLEEP_S = 0.010
 PIPE_POOL = 4
 PIPE_TIMEOUT_S = 2.0
+# tpe_rest: trials after the history at stride 1 (b), per run from empty
+# (b, d), lanes and trials per lane of the joint and Gumbel fleet runs
+# (c, d), experiments of the joint cohort (c), trials of the qmc-started
+# run (e), of the pipelined suggest_quantile run (f), and the history and
+# steps of the run that crosses the 1,024 bucket (f).
+REST_MORE = 16
+REST_RUN = 256
+REST_LANES = 4
+REST_FLEET_RUN = 64
+REST_QMC = 25
+REST_PIPE = 64
+REST_BUCKET = 1024
+REST_BUCKET_HISTORY = 1020
+REST_BUCKET_STEPS = 10
 # Kernel symbol of each lowering, as the profiler names it.
 KERNEL_SYMBOLS = {"f32": "ei_scores_kernel<false>",
                   "bf16": "ei_scores_kernel<true>",
@@ -1966,6 +2001,414 @@ def phase_pipeline(dev):
     return tally.rows()
 
 
+def phase_tpe_rest(dev, hosted):
+    """The rest of TPE at full width, checks (a) to (f).  ``hosted``: the
+    factorized step's numbers (suggest_step phase).  Returns ``{lowering:
+    (eager launches, launches recorded into graphs, replays of graphs
+    that hold the kernel)}`` over its counted runs."""
+    space = flagship_space()
+    cs = compile_space(space)
+    tally = Tally()
+    counted = tally.counted
+    t_phase = time.perf_counter()
+    mv = dict(n_EI_candidates=N_CAND, multivariate=True)
+    algo_mv = partial(tpe.suggest, **mv)
+    algo_fac = partial(tpe.suggest, n_EI_candidates=N_CAND)
+
+    def only(what, low, n):
+        """The last counted run launched ``low``'s kernel ``n`` times and
+        the others never."""
+        by = dict(ei_mod.ei_scores.launches_by)
+        if by != {k: n * (k == low) for k in by}:
+            fail(f"tpe_rest {what}: EI launches {by}, wanted {n} of {low}")
+
+    # (a) the hosted joint step at full width.
+    domain = base.Domain(objective, space)
+    domain.cs.device = dev
+    trials = synthetic_trials(domain.cs, N_HISTORY, 0, dev)
+    tid = trials.new_trial_ids(1)
+
+    def step(s):
+        return tpe.suggest_batch(tid, domain, trials, s, **mv)
+
+    times = []
+    for s in range(6):
+        t0 = time.perf_counter()
+        vals, _ = counted("f32", lambda: step(s))
+        times.append((time.perf_counter() - t0) * 1e3)
+        only(f"(a) step {s}", "f32", 1)
+        bad = in_bounds(cs, vals[0])
+        if bad:
+            fail(f"tpe_rest (a): proposal outside the space: {bad}")
+    steady_ms = float(np.median(times[1:]))
+    prof = counted("f32", lambda: profile_steps(
+        lambda s: step(100 + s), label="tpe_rest (a) joint step"))
+    only("(a) profiled steps", "f32", 3)
+    print(f"tpe_rest (a): joint step at P={cs.n_params}, history "
+          f"{N_HISTORY}, n_cand {N_CAND}: first_ms={times[0]:.2f} "
+          f"steady_ms_median={steady_ms:.2f}, K1 once per step; profiled "
+          f"wall {prof['wall_ms']:.3f} ms, busy {prof['busy_ms']:.3f} ms, "
+          f"share {prof['share']:.3f}, {prof['kernels']:.1f} kernels per "
+          f"step; the factorized step in this run: steady "
+          f"{hosted['steady_ms']:.2f} ms, busy {hosted['busy_ms']:.3f} ms, "
+          f"share {hosted['share']:.3f}, {hosted['kernels']:.1f} kernels")
+    small = compile_space(flagship_space(10))
+    hist = tpe._padded_history(synthetic_trials(small, 50, 1, "cpu")
+                               .history(small), 64)
+    rows, noise = [], None
+    for d in (torch.device("cpu"), dev):
+        kern = tpe.get_kernel(small, 64, 128, 25, device=d,
+                              multivariate=True)
+        if noise is None:
+            noise = kern.draw_noise(torch.Generator().manual_seed(0))
+        nz = {"cont": [(a.to(d), b.to(d)) for a, b in noise["cont"]],
+              "cat": noise["cat"].to(d)}
+        row, _ = kern(*[torch.as_tensor(a, device=d) for a in hist], 0.25,
+                      1.0, noise=nz)
+        rows.append(row.cpu())
+    if not torch.allclose(rows[0], rows[1], rtol=1e-5, atol=1e-5):
+        fail(f"tpe_rest (a): card and CPU joint steps propose different "
+             f"rows:\n{rows[1]}\n{rows[0]}")
+    print("tpe_rest (a): card and CPU joint rows agree on the small step")
+
+    # (b) device mode, joint: 16 trials at stride 1 after the history equal
+    # the hosted joint run's; 256 from empty, one capture, K1 once per
+    # replay; card ms per replay beside the factorized step's, in turns.
+    history0 = synthetic_trials(cs, N_HISTORY, 1, dev)
+
+    def copy_history():
+        return base.trials_from_docs(copy.deepcopy(list(history0)))
+
+    n_total = N_HISTORY + REST_MORE
+    th = copy_history()
+    counted("f32", lambda: ho.fmin(
+        objective_f32, space, algo=algo_mv, max_evals=n_total, trials=th,
+        rstate=np.random.default_rng(4), device=dev,
+        show_progressbar=False))
+    only("(b) hosted joint run", "f32", REST_MORE)
+    obj_b = make_objective_torch()
+    td = counted("f32", lambda: device_fmin(
+        obj_b, space, algo_mv, copy_history(), n_total, 1, dev, 4))
+    check_counters("tpe_rest (b) stride 1", captures=1, replays=REST_MORE,
+                   eager_steps=0, fetch_syncs=REST_MORE)
+    check_captures("tpe_rest (b) stride 1", "f32")
+    diffs = column_diffs(landed(td, N_HISTORY), landed(th, N_HISTORY))
+    if diffs or len(td) != n_total:
+        fail(f"tpe_rest (b): joint device and hosted trials differ: {diffs}")
+    # The factorized step's graph at the same bucket, for the card ms per
+    # replay after the 1,000 rows, in turns.
+    obj_bf = make_objective_torch()
+    counted("f32", lambda: device_fmin(obj_bf, space, algo_fac,
+                                       copy_history(), n_total, 1, dev, 4))
+    check_counters("tpe_rest (b) factorized stride 1", captures=1,
+                   replays=REST_MORE, eager_steps=0)
+    h1k = th.history(cs)
+    seg_b = {"joint": segment_of(cs, obj_b, tpe._bucket(n_total)),
+             "factorized": segment_of(cs, obj_bf, tpe._bucket(n_total))}
+    card_1k = {"joint": [], "factorized": []}
+    for label in ("joint", "factorized", "factorized", "joint"):
+        _, ms = counted("f32", lambda: replay_ms(seg_b[label], h1k,
+                                                 N_HISTORY))
+        card_1k[label].append(ms)
+    print(f"tpe_rest (b): {REST_MORE} joint trials after {N_HISTORY} at "
+          f"sync_stride=1 equal the hosted joint run's (misc.vals, "
+          f"losses); card ms per replay after {N_HISTORY} rows (bucket "
+          f"{seg_b['joint'].n_cap}, in turns joint, factorized, factorized, "
+          f"joint): joint {card_1k['joint'][0]:.4f}/"
+          f"{card_1k['joint'][1]:.4f}, factorized "
+          f"{card_1k['factorized'][0]:.4f}/{card_1k['factorized'][1]:.4f}; "
+          f"pool bytes joint {seg_b['joint'].pool_bytes}, factorized "
+          f"{seg_b['factorized'].pool_bytes}")
+    obj_mv, obj_fac = make_objective_torch(), make_objective_torch()
+    rates = {}
+    for label, obj, algo in (("joint", obj_mv, algo_mv),
+                             ("factorized", obj_fac, algo_fac)):
+        t0 = time.perf_counter()
+        t = counted("f32", lambda: device_fmin(obj, space, algo, ho.Trials(),
+                                               REST_RUN, None, dev, 5))
+        rates[label] = REST_RUN / (time.perf_counter() - t0)
+        check_counters(f"tpe_rest (b) {label} capture run", captures=1,
+                       replays=REST_RUN, eager_steps=0, fetch_syncs=1)
+        check_captures(f"tpe_rest (b) {label} capture run", "f32")
+    h256 = t.history(cs)
+    t0 = time.perf_counter()
+    counted("f32", lambda: device_fmin(obj_mv, space, algo_mv, ho.Trials(),
+                                       REST_RUN, None, dev, 6))
+    replay_rate = REST_RUN / (time.perf_counter() - t0)
+    check_counters("tpe_rest (b) joint replay run", captures=0,
+                   run_cache_hits=1, replays=REST_RUN, eager_steps=0)
+    wall_ms, kernels = counted("f32", lambda: profiled(
+        lambda: device_fmin(obj_mv, space, algo_mv, ho.Trials(), REST_RUN,
+                            None, dev, 7)))
+    check_counters("tpe_rest (b) profiled joint run", captures=0,
+                   run_cache_hits=1, replays=REST_RUN, eager_steps=0)
+    seen = kernel_counts(kernels)
+    if seen != {k: REST_RUN * (k == "f32") for k in seen}:
+        fail(f"tpe_rest (b): the profiler counted {seen} EI kernel runs in "
+             f"{REST_RUN} joint replays")
+    busy = sum(m for _, _, m in kernels)
+    n_k = sum(c for _, c, _ in kernels)
+    seg_mv = segment_of(cs, obj_mv, tpe._bucket(REST_RUN))
+    seg_fac = segment_of(cs, obj_fac, tpe._bucket(REST_RUN))
+    card = {"joint": [], "factorized": []}
+    rows_in = REST_RUN - DEVICE_PROFILED
+    for label, seg in (("joint", seg_mv), ("factorized", seg_fac),
+                       ("factorized", seg_fac), ("joint", seg_mv)):
+        _, ms = counted("f32", lambda: replay_ms(seg, h256, rows_in))
+        card[label].append(ms)
+    print(f"tpe_rest (b): {REST_RUN} trials from empty at stride None, "
+          f"one capture each: joint {rates['joint']:.1f} trials/s, "
+          f"factorized {rates['factorized']:.1f} (capture included); "
+          f"joint replayed run {replay_rate:.1f} trials/s; profiled joint "
+          f"run: K1 {seen['f32']} runs in {REST_RUN} replays, busy "
+          f"{busy / REST_RUN:.3f} ms and {n_k / REST_RUN:.1f} kernels per "
+          f"replay, share {busy / wall_ms:.3f}; card ms per replay after "
+          f"{rows_in} rows (bucket {seg_mv.n_cap}, in turns joint, "
+          f"factorized, factorized, joint): joint "
+          f"{card['joint'][0]:.4f}/{card['joint'][1]:.4f}, factorized "
+          f"{card['factorized'][0]:.4f}/{card['factorized'][1]:.4f}; pool "
+          f"bytes joint {seg_mv.pool_bytes}, factorized "
+          f"{seg_fac.pool_bytes}")
+
+    # (c) joint fleet lanes and the joint cohort, per EI lowering.
+    domain_c = base.Domain(objective, space)
+    domain_c.cs.device = dev
+    exps = [synthetic_trials(cs, 200 + 7 * j, 60 + j, dev)
+            for j in range(COHORT)]
+    seeds = [700 + 13 * j for j in range(COHORT)]
+    ids = [t.new_trial_ids(1) for t in exps]
+    n, lanes, stride = REST_FLEET_RUN, REST_LANES, FLEET_STRIDE
+    for low, (name, _, _, _, tpe_kw) in KERNELS.items():
+        kw = dict(mv, **tpe_kw)
+        obj = make_objective_torch()
+        tl = [ho.Trials() for _ in range(lanes)]
+        infos = counted(low, lambda: fleet.fmin_fleet(
+            obj, cs, lanes, n, seed=41, sync_stride=stride, trials_list=tl,
+            device=dev, **kw))
+        check_counters(f"tpe_rest (c) {low} fmin_fleet", captures=1,
+                       replays=n, eager_steps=0, fetch_syncs=n // stride)
+        check_captures(f"tpe_rest (c) {low} fmin_fleet", low)
+        for j in range(lanes):
+            t = counted(low, lambda: device_fmin(
+                obj, space, partial(tpe.suggest, **kw), ho.Trials(), n,
+                stride, dev, 41 + j))
+            diffs = column_diffs(landed(tl[j], 0), landed(t, 0))
+            solo = np.asarray([d["result"]["loss"] for d in t], np.float32)
+            if diffs or len(t) != n or device.eager_steps \
+                    or not np.array_equal(infos[j]["losses"], solo):
+                fail(f"tpe_rest (c) {low}: joint lane {j} differs from its "
+                     f"solo device run: {diffs}")
+        pool = segment_of(cs, obj, tpe._bucket(n), lanes).pool_bytes
+        want = [tpe.suggest(ids[j], domain_c, exps[j], seeds[j], **kw)
+                for j in range(COHORT)]
+        sched = fleet.CohortScheduler(**kw)
+        fleet.reset_counters()
+        handles = counted(low, lambda: sched.suggest_dispatch(
+            [(ids[j], domain_c, exps[j], seeds[j]) for j in range(COHORT)]))
+        only(f"(c) {low} cohort", low, 1)
+        if fleet.dispatches != 1:
+            fail(f"tpe_rest (c) {low}: {fleet.dispatches} cohort dispatches")
+        got = [fleet.suggest_materialize(hd) for hd in handles]
+        for j in range(COHORT):
+            if got[j][0]["misc"]["vals"] != want[j][0]["misc"]["vals"]:
+                fail(f"tpe_rest (c) {low}: experiment {j}'s joint cohort row "
+                     f"differs from its solo tpe.suggest")
+        print(f"tpe_rest (c) {low}: fmin_fleet(multivariate=True, {lanes} "
+              f"lanes, {n} trials) lands each lane's solo device run bit for "
+              f"bit (pool {pool} bytes); a joint CohortScheduler served "
+              f"{COHORT} experiments with one launch of {name}, each row "
+              f"equal to its solo tpe.suggest")
+
+    # (d) the lowerings: sort and unfused land the default's trials; the
+    # Gumbel sampler captures, stays in bounds, and its lanes equal their
+    # solo runs; card ms per replay of each, in turns.
+    variants = (("default", {}), ("sort", dict(split_impl="sort")),
+                ("unfused", dict(fused_step=False)),
+                ("gumbel", dict(comp_sampler="gumbel")))
+    lowered = {}
+    for label, extra in variants:
+        obj = make_objective_torch()
+        algo = partial(tpe.suggest, n_EI_candidates=N_CAND, **extra)
+        t = counted("f32", lambda: device_fmin(obj, space, algo, ho.Trials(),
+                                               REST_RUN, None, dev, 9))
+        check_counters(f"tpe_rest (d) {label}", captures=1, replays=REST_RUN,
+                       eager_steps=0, fetch_syncs=1)
+        check_captures(f"tpe_rest (d) {label}", "f32")
+        lowered[label] = (t, segment_of(cs, obj, tpe._bucket(REST_RUN)))
+    ref = landed(lowered["default"][0], 0)
+    for label in ("sort", "unfused"):
+        diffs = column_diffs(landed(lowered[label][0], 0), ref)
+        if diffs:
+            fail(f"tpe_rest (d): {label} lands other trials than the "
+                 f"default: {diffs}")
+    hg = lowered["gumbel"][0].history(cs)
+    for row, act in zip(hg["vals"], hg["active"]):
+        bad = [lab for lab in in_bounds(cs, row) if act[cs.by_label[lab].pid]]
+        if bad:
+            fail(f"tpe_rest (d): Gumbel proposal outside the space: {bad}")
+    obj = make_objective_torch()
+    gkw = dict(n_EI_candidates=N_CAND, comp_sampler="gumbel")
+    infos = counted("f32", lambda: fleet.fmin_fleet(
+        obj, cs, lanes, n, seed=51, sync_stride=stride, device=dev, **gkw))
+    check_counters("tpe_rest (d) Gumbel fleet", captures=1, replays=n,
+                   eager_steps=0)
+    for j in range(lanes):
+        _, solo = counted("f32", lambda: ho.fmin_device(
+            obj, cs, n, seed=51 + j, device=dev, **gkw))
+        for k in ("losses", "vals", "active"):
+            if not np.array_equal(infos[j][k], solo[k]):
+                fail(f"tpe_rest (d): Gumbel lane {j} differs from its solo "
+                     f"run in {k}")
+    h_d = lowered["default"][0].history(cs)
+    card = {label: [] for label, _ in variants}
+    order = [label for label, _ in variants]
+    for label in order + order[::-1]:
+        _, ms = counted("f32", lambda: replay_ms(lowered[label][1], h_d,
+                                                 rows_in))
+        card[label].append(ms)
+    print(f"tpe_rest (d): split_impl='sort' and fused_step=False land the "
+          f"default's {REST_RUN} trials; comp_sampler='gumbel' captures, "
+          f"proposes in bounds, and its {lanes} fleet lanes equal their "
+          f"solo runs; card ms per replay after {rows_in} rows (in turns, "
+          f"forth and back): " + ", ".join(
+              f"{label} {ms[0]:.4f}/{ms[1]:.4f}" for label, ms in card.items())
+          + "; pool bytes " + ", ".join(
+              f"{label} {lowered[label][1].pool_bytes}" for label in order))
+
+    # (e) startup="qmc": the card's startup rows equal the CPU's; then TPE
+    # steps follow on the card; device mode refuses it.
+    qalgo = partial(tpe.suggest, startup="qmc", n_EI_candidates=N_CAND)
+    starts = []
+    for d, n_q in ((torch.device("cpu"), 20), (dev, REST_QMC)):
+        t = ho.Trials()
+        counted("f32", lambda: ho.fmin(
+            objective, space, algo=qalgo, max_evals=n_q, trials=t,
+            rstate=np.random.default_rng(11), device=d,
+            show_progressbar=False))
+        if d.type == "cuda":
+            only("(e) qmc-started run", "f32", REST_QMC - 20)
+        starts.append([doc["misc"]["vals"] for doc in list(t)[:20]])
+    if starts[0] != starts[1]:
+        fail("tpe_rest (e): the card's qmc startup rows differ from the "
+             "CPU's")
+    try:
+        ho.fmin(make_objective_torch(), space, algo=qalgo, max_evals=8,
+                trials=ho.Trials(), rstate=np.random.default_rng(0),
+                device=dev, mode="device", show_progressbar=False)
+    except ValueError as e:
+        if "host-only" not in str(e):
+            fail(f"tpe_rest (e): the refusal does not say why: {e}")
+    else:
+        fail("tpe_rest (e): mode='device' took startup='qmc'")
+    print(f"tpe_rest (e): startup='qmc' proposes the CPU's 20 startup rows "
+          f"on the card, then {REST_QMC - 20} TPE steps (one K1 each); "
+          f"mode='device' refuses it (ValueError)")
+
+    # (f) suggest_quantile in the pipeline, and the step that crosses the
+    # 1,024 bucket with and without the prewarm.
+    history_f = list(synthetic_trials(cs, N_HISTORY, 4, dev))
+    sizes = []
+
+    def q_dispatch(new_ids, domain, trials, seed):
+        hd = tpe.suggest_quantile.dispatch(new_ids, domain, trials, seed,
+                                           n_EI_candidates=N_CAND)
+        if hd[0] == "pending":
+            sizes.append(len(new_ids))
+        return hd
+
+    def q_suggest(new_ids, domain, trials, seed):
+        return tpe.suggest_quantile.materialize(
+            q_dispatch(new_ids, domain, trials, seed))
+
+    q_suggest.dispatch = q_dispatch
+    for half in ("materialize", "start_transfer", "handle_ready"):
+        setattr(q_suggest, half, getattr(tpe.suggest_quantile, half))
+    t = ho.Trials()
+    t.insert_trial_docs(copy.deepcopy(history_f))
+    t.refresh()
+    t0 = time.perf_counter()
+    counted("f32", lambda: ho.fmin(
+        objective, space, algo=q_suggest, max_evals=N_HISTORY + REST_PIPE,
+        trials=t, rstate=np.random.default_rng(12), device=dev,
+        overlap_depth=2, show_progressbar=False))
+    q_wall = time.perf_counter() - t0
+    steps = sum(tpe._batch_size_for(k) for k in sizes)
+    only("(f) suggest_quantile pipeline", "f32", steps)
+    check_settled("tpe_rest (f)", t)
+    if steps != REST_PIPE or len(t) != N_HISTORY + REST_PIPE:
+        fail(f"tpe_rest (f): {steps} TPE steps, {len(t)} trials")
+    cross = {True: [], False: []}
+    first = REST_BUCKET + 1 - REST_BUCKET_HISTORY    # the first past it
+    hist_b = list(synthetic_trials(cs, REST_BUCKET_HISTORY, 13, dev))
+    for prewarm in (True, False, True, False):
+        # Each turn builds the 2,048 bucket's kernel anew, and the 1,024
+        # kernel may prewarm it again.
+        with tpe._KERNELS_LOCK:
+            for k in list(cs._tpe_kernels):
+                if k[0] == 2 * REST_BUCKET:
+                    del cs._tpe_kernels[k]
+                else:
+                    cs._tpe_kernels[k].__dict__.pop("_prewarmed", None)
+        times = []
+
+        def timed(new_ids, domain, trials, seed):
+            t0 = time.perf_counter()
+            docs = tpe.suggest(new_ids, domain, trials, seed,
+                               n_EI_candidates=N_CAND)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return docs
+
+        t = ho.Trials()
+        t.insert_trial_docs(copy.deepcopy(hist_b))
+        t.refresh()
+        orig = tpe._prewarm_async
+        if not prewarm:
+            tpe._prewarm_async = lambda kern, n=1: None
+        try:
+            counted("f32", lambda: ho.fmin(
+                objective, space, algo=timed,
+                max_evals=REST_BUCKET_HISTORY + REST_BUCKET_STEPS, trials=t,
+                rstate=np.random.default_rng(14), device=dev,
+                show_progressbar=False))
+        finally:
+            tpe._prewarm_async = orig
+        tpe.wait_prewarm()
+        only(f"(f) bucket crossing, prewarm {prewarm}", "f32",
+             REST_BUCKET_STEPS)
+        cross[prewarm].append((times[first],
+                               float(np.median(times[first + 1:])),
+                               float(np.median(times[:first]))))
+    # What the prewarm takes off the crossing step: building the 2,048
+    # bucket's kernel, timed alone.
+    build_ms = []
+    for _ in range(3):
+        with tpe._KERNELS_LOCK:
+            for k in [k for k in cs._tpe_kernels if k[0] == 2 * REST_BUCKET]:
+                del cs._tpe_kernels[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tpe.get_kernel(cs, 2 * REST_BUCKET, N_CAND, 25, device=dev)
+        torch.cuda.synchronize()
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+    fmt = "; ".join(
+        f"{'with' if pw else 'without'} prewarm: " + ", ".join(
+            f"first {a:.3f} steady {b:.3f} (before: {c:.3f})"
+            for a, b, c in cross[pw]) for pw in (True, False))
+    print(f"tpe_rest (f): suggest_quantile at overlap_depth=2, {REST_PIPE} "
+          f"trials after {N_HISTORY}: {REST_PIPE / q_wall:.2f} trials/s, K1 "
+          f"once per TPE step ({steps}); host ms per suggest across the "
+          f"{REST_BUCKET} -> {2 * REST_BUCKET} bucket (the first step at "
+          f"{REST_BUCKET + 1} rows, the steady median after it, and before "
+          f"it in {REST_BUCKET}), in turns: {fmt}; building the "
+          f"{2 * REST_BUCKET} kernel alone: "
+          + ", ".join(f"{ms:.3f}" for ms in build_ms) + " ms")
+    print(f"tpe_rest: EI wrapper over the phase: eager launches "
+          f"{tally.launches}, recorded into graphs {tally.recorded}, graph "
+          f"replays {tally.replayed}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return tally.rows()
+
+
 def phase_card_tests():
     """``python -m pytest tests_torch_cuda`` in a subprocess: it must exit
     0 with every collected test passed."""
@@ -2013,25 +2456,28 @@ def main():
     fleet_launches, fleet_times = phase_fleet(dev, solo_rates)
     obs_launches = phase_obs(dev)
     pipeline_launches = phase_pipeline(dev)
+    rest_launches = phase_tpe_rest(dev, hosted)
     phase_card_tests()
     print(f"total seconds {time.perf_counter() - t0:.1f}")
     rows = []
     for low, (name, source, replaces, _, _) in KERNELS.items():
         # Launches on the main paths, each counted from zero just before
         # its run: the fmin phase (f32), this lowering's liar_batch run,
-        # device_mode's, the fleet's and obs's eager warm-up steps, the
-        # fleet's cohort dispatch, obs's hosted runs and the pipeline
-        # phase's runs.  A capture records
+        # device_mode's, the fleet's, obs's and tpe_rest's eager warm-up
+        # steps, the cohort dispatches, obs's hosted runs, the pipeline
+        # phase's runs and tpe_rest's hosted runs.  A capture records
         # the launch into its graph without running it (graph_recorded);
         # graph_replays counts replays of graphs that hold the kernel, one
         # kernel run each (for all lanes) by the profiler's count in
-        # device_mode (c), (d), fleet (c) and obs (a).  fleet_ms: the
-        # kernel through its wrapper at 31·L columns.
+        # device_mode (c), (d), fleet (c), obs (a) and tpe_rest's
+        # counted runs.  fleet_ms: the kernel through its wrapper at 31·L
+        # columns.
         dev_launches, dev_recorded, dev_replays = (
             sum(parts) for parts in zip(device_launches[low],
                                         fleet_launches[low],
                                         obs_launches[low],
-                                        pipeline_launches[low]))
+                                        pipeline_launches[low],
+                                        rest_launches[low]))
         n = (liar_launches[low] + (fmin_launches if low == "f32" else 0)
              + dev_launches)
         k = kernels[low]

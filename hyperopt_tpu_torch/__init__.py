@@ -14,12 +14,16 @@ health, bundles, device-mode telemetry) and ``faults`` the seeded fault
 points.  ``fmin(overlap_depth=, evaluators=)`` runs the pipelined loop
 (``pipeline.py``: suggests in flight on the card while objectives run),
 and ``PoolTrials`` (``parallel/``) evaluates trials in threads or forked
-children.  Entry points run on CUDA unless the caller passes
+children.  Beside TPE (factorized or ``multivariate``, ``suggest_quantile``,
+``startup="qmc"``) sit ``qmc`` (Sobol/Halton suggest) and the space tools:
+``criteria``, ``rdists``, ``pyll`` (``pyll_shim``), ``graphviz`` and
+``plotting``.  Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 """
 
 from . import (  # noqa: F401
-    device, faults, fleet, history, hp, obs, rand, tpe)
+    criteria, device, faults, fleet, graphviz, history, hp, obs, plotting,
+    qmc, rand, rdists, tpe)
 from .base import (  # noqa: F401
     Ctrl,
     Domain,
@@ -38,31 +42,50 @@ from .base import (  # noqa: F401
     Trials,
     trials_from_docs,
 )
-from .exceptions import AllTrialsFailed, DuplicateLabel  # noqa: F401
+from .exceptions import (  # noqa: F401
+    AllTrialsFailed,
+    DuplicateLabel,
+    HyperoptTpuError,
+    InjectedFault,
+    InvalidTrial,
+    TransientEvaluationError,
+)
 from .device import fmin_device  # noqa: F401
 from .fleet import fmin_fleet  # noqa: F401
 from .fmin import (  # noqa: F401
     FMinIter,
     fmin,
+    fmin_pass_expr_memo_ctrl,
     generate_trials_to_calculate,
     partial,
     space_eval,
 )
 from .parallel import PoolTrials  # noqa: F401
 from .scope import scope  # noqa: F401
-from .space import CompiledSpace, compile_space  # noqa: F401
+from . import pyll_shim as pyll  # noqa: F401
+from .space import Apply, CompiledSpace, compile_space  # noqa: F401
 from .utils.early_stop import no_progress_loss  # noqa: F401
 
+# ``import hyperopt_tpu_torch.pyll`` and ``from hyperopt_tpu_torch.pyll
+# import scope`` resolve as for a submodule (the reference's
+# ``hyperopt.pyll``).
+import sys as _sys  # noqa: E402
+
+_sys.modules[__name__ + ".pyll"] = pyll
+del _sys
+
 __all__ = [
-    "fmin", "fmin_device", "fmin_fleet", "FMinIter", "space_eval",
+    "fmin", "fmin_device", "fmin_fleet", "FMinIter",
+    "fmin_pass_expr_memo_ctrl", "space_eval",
     "generate_trials_to_calculate", "partial",
-    "hp", "tpe", "rand", "scope", "history", "device", "fleet", "obs",
-    "faults",
+    "hp", "tpe", "rand", "qmc", "scope", "history", "device", "fleet", "obs",
+    "faults", "criteria", "rdists", "pyll", "graphviz", "plotting",
     "Trials", "trials_from_docs", "Domain", "Ctrl", "PoolTrials",
     "CompiledSpace", "compile_space", "no_progress_loss",
     "STATUS_NEW", "STATUS_RUNNING", "STATUS_SUSPENDED", "STATUS_OK",
     "STATUS_FAIL", "STATUS_STRINGS",
     "JOB_STATE_NEW", "JOB_STATE_RUNNING", "JOB_STATE_DONE",
     "JOB_STATE_ERROR", "JOB_STATE_CANCEL", "JOB_STATES",
-    "AllTrialsFailed", "DuplicateLabel",
+    "AllTrialsFailed", "DuplicateLabel", "HyperoptTpuError", "InvalidTrial",
+    "InjectedFault", "TransientEvaluationError", "Apply",
 ]

@@ -35,8 +35,10 @@ independent runs (the fleet's lanes; ``L = 1`` for a solo run), their
 buffers stacked along a leading lane axis:
 
 1. both arms of the proposal: a startup draw (``CompiledSpace.sample``)
-   and a TPE step (``_TpeKernel._suggest_lanes``, with its EI kernel
-   launched once for all lanes), each lane's uniforms from its own pair
+   and a TPE step (``_TpeKernel._suggest_lanes``, factorized or joint
+   (``multivariate``), with its EI kernel launched once for all lanes, on
+   the sampler/split/fit lowering asked for), each lane's uniforms from
+   its own pair
    of ``torch.Generator``s, and ``torch.where`` on the device count of
    ok rows picks one per lane (a graph cannot branch; the JAX package's
    ``lax.cond``);
@@ -117,6 +119,7 @@ from .tpe import (
     _insert_row,
     get_kernel,
     stack_noise,
+    wait_prewarm,
 )
 from .utils.progress import default_callback, no_progress_callback
 
@@ -349,6 +352,9 @@ class _Segment:
         # The sampler's constants are uploaded once per device: before the
         # warm-up, whose sync check would take the upload for a round trip.
         self.cs._consts(dev)
+        # A kernel being built ahead by a hosted run's bucket prewarm
+        # uploads from its own thread: let it finish before the capture.
+        wait_prewarm()
         with torch.cuda.device(dev):
             try:
                 side = torch.cuda.Stream(dev)
@@ -528,9 +534,12 @@ def _build_segment(cs, kern, eval_one, n_startup, gamma, prior_weight,
 
 def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
                  gamma, prior_weight, linear_forgetting, split, cat_prior,
-                 ei_impl, ei_precision, ei_topm, n_lanes=1, telemetry=False):
-    """The cached segment for this objective, bucket, tuning, lane count
-    and telemetry switch, built (and captured) on a miss."""
+                 ei_impl, ei_precision, ei_topm, n_lanes=1, telemetry=False,
+                 multivariate=False, comp_sampler="icdf", split_impl="topk",
+                 fused_step=True):
+    """The cached segment for this objective, bucket, tuning (the
+    lowerings included), lane count and telemetry switch, built (and
+    captured) on a miss."""
     n_cap = _bucket(max_evals)
     dev = torch.device(device)
     # id(fn) is the only safe key for the objective: closures with the same
@@ -539,7 +548,8 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
     key = (id(fn), n_cap, str(dev), int(n_startup_jobs), float(gamma),
            float(prior_weight), int(linear_forgetting),
            int(n_EI_candidates), split, cat_prior, ei_impl, ei_precision,
-           int(ei_topm), int(n_lanes), bool(telemetry))
+           int(ei_topm), int(n_lanes), bool(telemetry), bool(multivariate),
+           comp_sampler, split_impl, bool(fused_step))
     with _CACHE_LOCK:
         cache = cs.__dict__.setdefault("_device_runs", OrderedDict())
         hit = cache.get(key)
@@ -552,7 +562,8 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
                     n_lanes=int(n_lanes), telemetry=bool(telemetry))
         kern = get_kernel(cs, n_cap, int(n_EI_candidates),
                           int(linear_forgetting), split, cat_prior, dev,
-                          ei_impl, ei_precision, int(ei_topm))
+                          ei_impl, ei_precision, int(ei_topm), multivariate,
+                          comp_sampler, split_impl, fused_step)
         seg = _build_segment(cs, kern, _wrap_objective(fn, cs),
                              n_startup_jobs, gamma, prior_weight, n_lanes,
                              telemetry)
@@ -581,7 +592,9 @@ def fmin_device(fn, space, max_evals, seed=0,
                 linear_forgetting=_default_linear_forgetting,
                 split="sqrt", cat_prior="sqrt", ei_impl="vpu",
                 ei_precision="f32", ei_topm=0, mesh=None, init=None,
-                n_runs=1, patience=None, min_improvement=0.0, device=None):
+                n_runs=1, patience=None, min_improvement=0.0, device=None,
+                multivariate=False, comp_sampler="icdf", split_impl="topk",
+                fused_step=True):
     """Run ``max_evals`` trials of TPE on the device; see the module doc.
 
     Returns ``(best, info)``: ``best`` is the ``{label: value}`` dict of the
@@ -610,8 +623,9 @@ def fmin_device(fn, space, max_evals, seed=0,
     is per run, and the replays stop once every run has stopped.  ``init``
     does not compose with ``n_runs > 1``.
 
-    ``mesh=`` raises ``NotImplementedError`` (the dispatch slice).
-    ``device`` defaults to CUDA."""
+    ``multivariate``, ``comp_sampler``, ``split_impl`` and ``fused_step``
+    are ``tpe.suggest``'s.  ``mesh=`` raises ``NotImplementedError`` (the
+    dispatch slice).  ``device`` defaults to CUDA."""
     if mesh is not None:
         raise NotImplementedError(
             _NOT_PORTED.format(what="fmin_device(mesh=)"))
@@ -656,7 +670,9 @@ def fmin_device(fn, space, max_evals, seed=0,
                        n_EI_candidates, gamma, prior_weight,
                        linear_forgetting, split, cat_prior, ei_impl,
                        ei_precision, ei_topm, n_lanes=n_runs,
-                       telemetry=_devtel.enabled())
+                       telemetry=_devtel.enabled(), multivariate=multivariate,
+                       comp_sampler=comp_sampler, split_impl=split_impl,
+                       fused_step=fused_step)
     ok = np.isfinite(pl)
     rstates = [np.random.default_rng(int(seed) + j) for j in range(n_runs)]
     with seg.lock:
@@ -708,7 +724,9 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
                 prior_weight=_default_prior_weight,
                 linear_forgetting=_default_linear_forgetting,
                 split="sqrt", cat_prior="sqrt", ei_impl="vpu",
-                ei_precision="f32", ei_topm=0, device=None):
+                ei_precision="f32", ei_topm=0, device=None,
+                multivariate=False, comp_sampler="icdf", split_impl="topk",
+                fused_step=True):
     """Run TPE on the device in segments of ``sync_stride`` trials, landing
     each segment's trials in ``trials`` (the engine of
     ``fmin(mode="device")``); returns ``trials``.
@@ -744,7 +762,9 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
     seg = _segment_for(fn, cs, max_evals, dev, n_startup_jobs,
                        n_EI_candidates, gamma, prior_weight,
                        linear_forgetting, split, cat_prior, ei_impl,
-                       ei_precision, ei_topm, telemetry=telemetry)
+                       ei_precision, ei_topm, telemetry=telemetry,
+                       multivariate=multivariate, comp_sampler=comp_sampler,
+                       split_impl=split_impl, fused_step=fused_step)
     reg = _metrics.registry()
     exp_key = getattr(trials, "exp_key", None)
     stride_label = "inf" if sync_stride is None else str(sync_stride)

@@ -35,8 +35,9 @@ and ``fleet.padding_waste`` gauges, and each cohort emits a
 slab with a lane axis (``obs/devtel.py``): each lane's info gets its slab
 reduced over the run, equal bit for bit to its solo run's.
 
-Not in this slice: ``mesh=`` (the dispatch slice), the service's cohort
-gate (the service slice) and ``multivariate`` (the TPE slice).
+Both halves take the TPE step's every keyword, ``multivariate`` and the
+sampler/split/fit lowerings included.  Not in this slice: ``mesh=`` (the
+dispatch slice) and the service's cohort gate (the service slice).
 """
 
 from __future__ import annotations
@@ -222,7 +223,8 @@ class CohortScheduler:
 
     One scheduler serves one TPE configuration, the keywords of
     ``tpe.suggest`` (``resident=False`` uploads every cohort's rings whole
-    instead of keeping them resident).  Requests are ``(new_ids, domain,
+    instead of keeping them resident; ``startup`` serves the requests
+    still in startup, which run solo).  Requests are ``(new_ids, domain,
     trials, seed)`` tuples, or with a fifth element, a dict of TPE keywords
     for that request: when they differ from the scheduler's, the request
     takes the solo path with them.  :meth:`suggest_dispatch` returns one
@@ -236,18 +238,20 @@ class CohortScheduler:
                  linear_forgetting=tpe._default_linear_forgetting,
                  split="sqrt", cat_prior="sqrt", ei_impl="vpu",
                  ei_precision="f32", ei_topm=0, resident=True,
-                 multivariate=False):
-        if multivariate:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="CohortScheduler(multivariate=True)", slice="TPE"))
+                 multivariate=False, startup=None, comp_sampler="icdf",
+                 split_impl="topk", fused_step=True):
         tpe._check_ei_args(ei_impl, ei_precision, ei_topm)
+        tpe._check_lowerings(comp_sampler, split_impl, fused_step)
         self._kwargs = dict(
             prior_weight=float(prior_weight),
             n_startup_jobs=int(n_startup_jobs),
             n_EI_candidates=int(n_EI_candidates), gamma=float(gamma),
             linear_forgetting=int(linear_forgetting), split=split,
             cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
-            ei_topm=int(ei_topm), resident=bool(resident))
+            ei_topm=int(ei_topm), resident=bool(resident),
+            multivariate=bool(multivariate), startup=startup,
+            comp_sampler=comp_sampler, split_impl=split_impl,
+            fused_step=bool(fused_step))
         self._lock = threading.Lock()
         self._states: dict = {}      # cohort key -> _CohortState
         self._rep_cs: dict = {}      # space signature -> representative
@@ -367,7 +371,9 @@ class CohortScheduler:
         kern = tpe.get_kernel(rep, n_cap, kw["n_EI_candidates"],
                               kw["linear_forgetting"], kw["split"],
                               kw["cat_prior"], dev, kw["ei_impl"],
-                              kw["ei_precision"], kw["ei_topm"])
+                              kw["ei_precision"], kw["ei_topm"],
+                              kw["multivariate"], kw["comp_sampler"],
+                              kw["split_impl"], kw["fused_step"])
         assigned = self._assign_lanes(state, members)
         b = len(state.lanes)
         kern.check_lanes(b)
@@ -489,7 +495,8 @@ def fmin_fleet(fn, space, n_lanes, max_evals, seed=0, sync_stride=None,
                prior_weight=tpe._default_prior_weight,
                linear_forgetting=tpe._default_linear_forgetting,
                split="sqrt", multivariate=False, cat_prior="sqrt",
-               ei_impl="vpu", ei_precision="f32", ei_topm=0, device=None):
+               ei_impl="vpu", ei_precision="f32", ei_topm=0, device=None,
+               comp_sampler="icdf", split_impl="topk", fused_step=True):
     """Run ``n_lanes`` independent device-mode TPE runs in lockstep, from
     empty histories, on one captured step (see the module doc).
 
@@ -524,16 +531,15 @@ def fmin_fleet(fn, space, n_lanes, max_evals, seed=0, sync_stride=None,
     if mesh is not None:
         raise NotImplementedError(_NOT_PORTED.format(
             what="fmin_fleet(mesh=)", slice="dispatch"))
-    if multivariate:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="fmin_fleet(multivariate=True)", slice="TPE"))
     dev = resolve_device(device)
     telemetry = _devtel.enabled()
     seg = _device._segment_for(fn, cs, max_evals, dev, n_startup_jobs,
                               n_EI_candidates, gamma, prior_weight,
                               linear_forgetting, split, cat_prior, ei_impl,
                               ei_precision, ei_topm, n_lanes=n_lanes,
-                              telemetry=telemetry)
+                              telemetry=telemetry, multivariate=multivariate,
+                              comp_sampler=comp_sampler,
+                              split_impl=split_impl, fused_step=fused_step)
     # Alive for this call: the weak set drops it when the call returns.
     stack = _LaneStackHandle(seg)
     _LANE_STACKS.add(stack)

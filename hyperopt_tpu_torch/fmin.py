@@ -30,6 +30,7 @@ triggers the flight recorder when it is installed (``obs/flight.py``).
 
 from __future__ import annotations
 
+import json
 import logging
 import numbers
 import os
@@ -67,6 +68,27 @@ def space_eval(space, hp_assignment: dict):
     """Substitute a ``{label: value}`` assignment (as returned by ``fmin``
     or ``trials.argmin``; choice values are branch indices) into a space."""
     return compile_space(space).eval_point(hp_assignment)
+
+
+def fmin_pass_expr_memo_ctrl(f):
+    """Mark an objective as taking ``(expr, memo, ctrl)`` instead of a
+    realized config; ``Domain`` reads the mark when ``fmin(...,
+    pass_expr_memo_ctrl=None)``."""
+    f.fmin_pass_expr_memo_ctrl = True
+    return f
+
+
+def _json_scalar(o):
+    """``json.dump``'s fallback for trial docs: numpy scalars and arrays as
+    plain values; anything else raises."""
+    if isinstance(o, np.generic):
+        return o.item()
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    raise TypeError(
+        f"trial doc contains non-JSON-serializable {type(o).__name__}; use "
+        f"a pickle trials_save_file (non-.json extension) for arbitrary "
+        f"result payloads")
 
 
 def generate_trials_to_calculate(points, exp_key=None):
@@ -346,11 +368,26 @@ class FMinIter:
              JOB_STATE_ERROR))
 
     def _save_trials(self):
+        """Checkpoint the trials: a pickle, or with a ``.json`` file name
+        the plain trial docs and ``exp_key`` (loadable without unpickling,
+        but without attachments or a ``Trials`` subclass's state)."""
         if not self.trials_save_file:
             return
         tmp = f"{self.trials_save_file}.tmp.{os.getpid()}"
-        with open(tmp, "wb") as f:
-            pickle.dump(self.trials, f, protocol=self.pickle_protocol)
+        try:
+            if self.trials_save_file.endswith(".json"):
+                with open(tmp, "w") as f:
+                    json.dump({"exp_key": self.trials.exp_key,
+                               "docs": list(self.trials)}, f,
+                              default=_json_scalar)
+            else:
+                with open(tmp, "wb") as f:
+                    pickle.dump(self.trials, f,
+                                protocol=self.pickle_protocol)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
         os.replace(tmp, self.trials_save_file)
         EVENTS.emit("store_flush", name="trials_save_file")
 
@@ -462,7 +499,8 @@ def fmin(fn, space, algo=None, max_evals=None,
     ``loss_threshold`` stops at a good-enough loss; ``rstate`` is a
     ``np.random.Generator`` or an int seed; ``points_to_evaluate`` is a
     list of ``{label: value}`` dicts run first; ``trials_save_file`` is a
-    pickle checkpoint, resumed when it exists; ``early_stop_fn(trials,
+    checkpoint (a pickle, or the JSON trial docs for a ``.json`` name),
+    resumed when it exists; ``early_stop_fn(trials,
     *args) -> (stop, args)``.  ``device`` is where the suggest algorithms
     run (default CUDA; ``"cpu"`` runs them on the CPU).  ``max_queue_len``
     is how many trials one call of the algo proposes (TPE: one batch of
@@ -534,8 +572,14 @@ def fmin(fn, space, algo=None, max_evals=None,
     validate_loss_threshold(loss_threshold)
 
     if trials_save_file and os.path.exists(trials_save_file) and trials is None:
-        with open(trials_save_file, "rb") as f:
-            trials = pickle.load(f)
+        if trials_save_file.endswith(".json"):
+            with open(trials_save_file) as f:
+                payload = json.load(f)
+            trials = base.trials_from_docs(payload["docs"],
+                                           exp_key=payload.get("exp_key"))
+        else:
+            with open(trials_save_file, "rb") as f:
+                trials = pickle.load(f)
 
     if trials is None:
         if points_to_evaluate is None:
@@ -624,23 +668,25 @@ def _result(trials, return_argmin):
     return None
 
 
-#: TPE keywords the device loop captures: the JAX package's, without
-#: ``multivariate`` (not ported), with the port's EI lowering arguments
-#: (the JAX device loop reads those from its environment toggles).
+#: TPE keywords the device loop captures: the JAX package's, with the
+#: port's lowering arguments (the JAX device loop reads those from its
+#: environment toggles).
 _DEVICE_ALGO_KEYS = frozenset((
     "gamma", "prior_weight", "n_startup_jobs", "n_EI_candidates",
-    "linear_forgetting", "split", "cat_prior", "ei_impl", "ei_precision",
-    "ei_topm"))
+    "linear_forgetting", "split", "multivariate", "cat_prior", "ei_impl",
+    "ei_precision", "ei_topm", "comp_sampler", "split_impl", "fused_step"))
 
 
 def _device_algo_kwargs(algo):
     """The TPE keywords that ``algo`` carries, for ``mode='device'``.
 
     The device loop does not call ``algo``; ``functools.partial(
-    tpe.suggest, gamma=...)`` unwraps to ``{'gamma': ...}``.  Anything but
-    ``tpe.suggest``, or a keyword the captured step cannot honour, raises:
-    running another algorithm than the one named would be worse than
-    failing."""
+    tpe.suggest, gamma=...)`` unwraps to ``{'gamma': ...}``, and
+    ``tpe.suggest_quantile`` sets ``split='quantile'``.  ``verbose`` is
+    dropped.  Anything but those two, a ``startup`` sampler other than
+    random search (the captured step warm-starts with it), or a keyword the
+    captured step cannot honour, raises: running another algorithm than
+    the one named would be worse than failing."""
     from . import tpe as _tpe
 
     kw = {}
@@ -652,12 +698,20 @@ def _device_algo_kwargs(algo):
         for k, v in (fn_.keywords or {}).items():
             kw.setdefault(k, v)
         fn_ = fn_.func
-    if fn_ is not _tpe.suggest:
+    if fn_ is _tpe.suggest_quantile:
+        kw.setdefault("split", "quantile")
+    elif fn_ is not _tpe.suggest:
         name = getattr(fn_, "__name__", repr(fn_))
         raise ValueError(
-            f"mode='device' supports TPE only (tpe.suggest, optionally "
-            f"functools.partial-bound); got {name}. Run mode=None for "
-            f"other algorithms.")
+            f"mode='device' supports TPE only (tpe.suggest or "
+            f"tpe.suggest_quantile, optionally functools.partial-bound); "
+            f"got {name}. Run mode=None for other algorithms.")
+    kw.pop("verbose", None)
+    startup = kw.pop("startup", None)
+    if startup not in (None, "rand"):
+        raise ValueError(
+            f"mode='device': startup={startup!r} is host-only; the captured "
+            f"step warm-starts with the random sampler")
     bad = sorted(set(kw) - _DEVICE_ALGO_KEYS)
     if bad:
         raise ValueError(f"mode='device' cannot honor algo keyword(s) {bad}; "

@@ -6,9 +6,10 @@ of mixtures along the leading axes: ``logw/mu/sigma`` are ``[..., K]``
 truncation bounds are ``[...]``.
 
 Sampling is inverse-CDF: the component is picked by a CDF compare on one
-uniform, then the truncated normal is drawn as ``ndtri(U[Φ(a), Φ(b)])``.
-The two uniforms per draw are arguments, so callers (and tests) can hand in
-the same numbers the JAX version draws.
+uniform (or, ``gumbel=True``, by the Gumbel-argmax trick over ``K``
+uniforms), then the truncated normal is drawn as ``ndtri(U[Φ(a), Φ(b)])``.
+The uniforms are arguments, so callers (and tests) can hand in the same
+numbers the JAX version draws.
 
 Every float sum runs in a fixed order (``fixed_order.py``), so a mixture
 scores and samples the same bits whatever batch it sits in.
@@ -27,6 +28,8 @@ from .fixed_order import prefix_sum, tree_logsumexp
 
 _TINY = 1e-12
 _U_MAX = 1.0 - 1e-7
+# Smallest normal float32: the lower end of jax.random.gumbel's uniforms.
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
@@ -148,21 +151,40 @@ def icdf_pick(u, cdf, last):
     return torch.minimum(idx, torch.as_tensor(last, device=idx.device))
 
 
-def gmm_sample(logw, mu, sigma, trunc_lo, trunc_hi, uc, u):
+def gumbel_pick(u, logits):
+    """Gumbel-argmax index pick over the last axis: ``jax.random.
+    categorical``'s lowering, from its uniforms.
+
+    ``u``: uniforms in [0, 1), ``[..., n, K]`` (what ``jax.random.uniform``
+    draws from the key ``gumbel`` gets); ``logits``: ``[..., K]``, ``-inf``
+    on options never picked.  The uniforms map as ``gumbel(mode="low")``
+    maps its own (``uniform(minval=tiny, maxval=1)``, then
+    ``-log(-log(·))``); the first maximum wins.  Returns int64 ``[..., n]``."""
+    g = -torch.log(-torch.log(torch.clamp_min(u + _F32_TINY, _F32_TINY)))
+    return torch.argmax(g + logits[..., None, :], dim=-1)
+
+
+def gmm_sample(logw, mu, sigma, trunc_lo, trunc_hi, uc, u, gumbel=False):
     """Fit-space draws from truncated GMMs, inverse-CDF style.
 
     ``logw/mu/sigma``: ``[..., K]``; ``trunc_lo/hi``: ``[...]``;
     ``uc``/``u``: uniforms ``[..., n]`` for the component pick and for the
-    truncated normal.  The component is drawn ∝ ``w_k · mass_k`` (what a
-    rejection sampler induces), then ``ndtri(U[Φ(a), Φ(b)])``."""
+    truncated normal (``gumbel=True``: ``uc`` is ``[..., n, K]``, the
+    pick's Gumbel uniforms, :func:`gumbel_pick`).  The component is drawn
+    ∝ ``w_k · mass_k`` (what a rejection sampler induces), then
+    ``ndtri(U[Φ(a), Φ(b)])``."""
     log_wmass, log_z = _log_trunc_mass(logw, mu, sigma, trunc_lo, trunc_hi)
-    cdf = prefix_sum(torch.exp(log_wmass - log_z[..., None]), dim=-1)
-    # Clamp to the highest live index (components are mu-sorted; an
-    # interior underflowed one must not take the top CDF segment).
-    k_idx = torch.arange(log_wmass.shape[-1], device=logw.device)
-    last_live = torch.amax(torch.where(log_wmass > -math.inf, k_idx,
-                                       torch.full_like(k_idx, -1)), dim=-1)
-    comp = icdf_pick(uc, cdf, last_live[..., None])
+    if gumbel:
+        comp = gumbel_pick(uc, log_wmass)
+    else:
+        cdf = prefix_sum(torch.exp(log_wmass - log_z[..., None]), dim=-1)
+        # Clamp to the highest live index (components are mu-sorted; an
+        # interior underflowed one must not take the top CDF segment).
+        k_idx = torch.arange(log_wmass.shape[-1], device=logw.device)
+        last_live = torch.amax(torch.where(log_wmass > -math.inf, k_idx,
+                                           torch.full_like(k_idx, -1)),
+                               dim=-1)
+        comp = icdf_pick(uc, cdf, last_live[..., None])
     m = onehot_lookup(comp, mu, 0.0)
     s = onehot_lookup(comp, sigma, 1.0)
     lo = _bounds(trunc_lo, logw)[..., None]

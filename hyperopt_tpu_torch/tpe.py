@@ -31,10 +31,24 @@ history with the mean observed loss as a fantasy, refit, repeat; ``m``
 steps (``n`` rounded up to a power of two) and one device→host fetch per
 batch.
 
+``multivariate=True`` scores whole candidate vectors instead (the JAX
+package's ``_suggest_one_joint_tel``): the ``n_cand`` draws of every column
+form ``n_cand`` vectors, the EI sheets of the columns active in a vector
+add up (in a fixed order, ``ops/fixed_order.py``) and the best vector wins.
+
+The JAX package's three environment-switched lowerings are arguments here:
+``comp_sampler`` (``"icdf"``: one uniform per draw and a CDF compare;
+``"gumbel"``: the Gumbel-argmax trick over ``[n_cand, K]`` uniforms, for
+the mixture component and the categorical draw), ``split_impl``
+(``"topk"``: the ``lf`` smallest losses; ``"sort"``: rank by double
+argsort, the same masks) and ``fused_step`` (True: below and above fits in
+one batched sweep; False: two sweeps, the same bits).
+
 Randomness: each step's uniforms come from a ``torch.Generator`` seeded
 from the suggest seed (one per batch, consumed in step order), or are
 handed in as ``noise`` (tests give the port the uniforms the JAX step
-draws).
+draws).  Until ``n_startup_jobs`` trials finish, ``startup`` picks the
+sampler: random search, or a low-discrepancy sequence (``qmc.py``).
 
 Lanes (the fleet, ``fleet.py``): the step body takes a leading lane axis,
 one experiment per lane with its own history, generator, ``gamma`` and
@@ -45,6 +59,7 @@ case, and lane ``j`` proposes bit for bit what a solo call proposes.
 
 from __future__ import annotations
 
+import logging
 import math
 import threading
 from time import perf_counter
@@ -60,9 +75,9 @@ from .obs.metrics import kernel_cache_event
 from .obs.metrics import registry as _metrics_registry
 from .ops.ei_scores import MAX_COLUMNS, ei_scores
 from .ops.fixed_order import prefix_sum, tree_sum
-from .ops.gmm import (gmm_log_qmass, gmm_sample, icdf_pick, onehot_lookup,
-                      truncate_mixture)
-from .ops.parzen import forgetting_weights
+from .ops.gmm import (gmm_log_qmass, gmm_sample, gumbel_pick, icdf_pick,
+                      onehot_lookup, truncate_mixture)
+from .ops.parzen import fit_parzen, forgetting_weights
 from .ops.step_ei import ei_argmax_stats, fused_parzen_fit
 from .space import (
     _MAX_RANDINT_RANGE,
@@ -88,6 +103,8 @@ _default_gamma = 0.25
 _default_linear_forgetting = 25
 _EI_IMPLS = ("vpu", "mxu")
 _EI_PRECISIONS = ("f32", "bf16")
+_COMP_SAMPLERS = ("icdf", "gumbel")
+_SPLIT_IMPLS = ("topk", "sort")
 
 _TINY = 1e-12
 # Bucket bounds in MILLISECONDS of the suggest.*_ms histograms: 50 us to
@@ -206,6 +223,17 @@ def _check_ei_args(ei_impl, ei_precision, ei_topm):
         raise ValueError(f"ei_topm must be an int >= 0, got {ei_topm!r}")
 
 
+def _check_lowerings(comp_sampler, split_impl, fused_step):
+    if comp_sampler not in _COMP_SAMPLERS:
+        raise ValueError(f"comp_sampler must be one of {_COMP_SAMPLERS}, "
+                         f"got {comp_sampler!r}")
+    if split_impl not in _SPLIT_IMPLS:
+        raise ValueError(f"split_impl must be one of {_SPLIT_IMPLS}, got "
+                         f"{split_impl!r}")
+    if not isinstance(fused_step, (bool, np.bool_)):
+        raise ValueError(f"fused_step must be a bool, got {fused_step!r}")
+
+
 def _insert_row(hv, ha, hl, hok, idx, row, act, loss, ok=True):
     """Write trials into rows ``idx`` (an int64 ``[k]`` tensor on the
     history's device) of the padded history tensors, in place: the liar
@@ -229,21 +257,31 @@ def _insert_row(hv, ha, hl, hok, idx, row, act, loss, ok=True):
 
 class _TpeKernel:
     """The TPE suggest step for a fixed (space, history bucket, n_cand, LF,
-    split, categorical prior, device, EI lowering).
+    split, categorical prior, device, EI lowering, joint or factorized
+    winner, sampler/split/fit lowering).
 
     ``ei_impl``/``ei_precision`` pick the EI kernel (``ops/ei_scores.py``:
     ``"vpu"``/``"f32"`` K1, ``"vpu"``/``"bf16"`` K2, ``"mxu"`` K3, which
     ignores the precision); ``ei_topm > 0`` scores against the top
-    ``ei_topm`` above components by weight only."""
+    ``ei_topm`` above components by weight only.  ``multivariate``,
+    ``comp_sampler``, ``split_impl`` and ``fused_step``: see the module
+    doc."""
 
     def __init__(self, cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
                  split: str = "sqrt", cat_prior: str = "sqrt", device="cuda",
                  ei_impl: str = "vpu", ei_precision: str = "f32",
-                 ei_topm: int = 0):
+                 ei_topm: int = 0, multivariate: bool = False,
+                 comp_sampler: str = "icdf", split_impl: str = "topk",
+                 fused_step: bool = True):
         _check_ei_args(ei_impl, ei_precision, ei_topm)
+        _check_lowerings(comp_sampler, split_impl, fused_step)
         self.ei_impl = ei_impl
         self.ei_precision = ei_precision
         self.ei_topm = int(ei_topm)
+        self.multivariate = bool(multivariate)
+        self.comp_sampler = comp_sampler
+        self.split_impl = split_impl
+        self.fused_step = bool(fused_step)
         self.cs = cs
         self.n_cap = n_cap
         self.n_cand = n_cand
@@ -337,6 +375,13 @@ class _TpeKernel:
                                 torch.clamp_max(n_ok, self.lf))
         loss = torch.where(torch.isnan(loss),
                            torch.full_like(loss, math.inf), loss)
+        # (A stand-in without split_impl, as in tests, splits by top-k.)
+        if getattr(self, "split_impl", "topk") == "sort":
+            # Rank by (loss, index): the ok trials hold ranks [0, n_ok).
+            rank = torch.argsort(torch.argsort(loss, dim=-1, stable=True),
+                                 dim=-1)
+            below = ok & (rank < n_below[..., None])
+            return below, ok & ~below
         # Only the k = min(lf, N) smallest losses can enter the below set.
         # A stable sort keeps the lower index first on ties, the order
         # lax.top_k gives in the JAX step.
@@ -374,14 +419,35 @@ class _TpeKernel:
             m, w, n_set = self._set_weights(set_mask, act)
             return torch.where(m, z, torch.full_like(z, math.inf)), w, n_set
 
-        return fused_parzen_fit(*set_obs(below), *set_obs(above),
-                                gt.prior_mu, gt.prior_sigma, prior_weight,
-                                cap_b, cap_a)
+        if self.fused_step:
+            return fused_parzen_fit(*set_obs(below), *set_obs(above),
+                                    gt.prior_mu, gt.prior_sigma,
+                                    prior_weight, cap_b, cap_a)
+
+        def models(set_mask, cap):
+            # One fit_parzen sweep per set (the JAX package's unfused
+            # lowering), lanes folded into its rows.
+            x, w, n_set = set_obs(set_mask)
+            lead, (n, c) = x.shape[:-2], x.shape[-2:]
+            lanes = x.numel() // max(1, n * c)
+            pw = prior_weight
+            if isinstance(pw, torch.Tensor):
+                pw = pw.reshape(-1).repeat_interleave(c)
+            out = fit_parzen(x.transpose(-1, -2).reshape(-1, n),
+                             w.transpose(-1, -2).reshape(-1, n),
+                             n_set.reshape(-1), gt.prior_mu.repeat(lanes),
+                             gt.prior_sigma.repeat(lanes), pw, cap)
+            wt, mu, sg = (t.reshape(*lead, c, cap) for t in out)
+            return torch.log(wt), mu, sg
+
+        return (*models(below, cap_b), *models(above, cap_a))
 
     def _cont_draw(self, gt, lwb, mub, sgb, uc, u):
         """Candidate draws ``zc [..., C, n_cand]`` (fit space) from the
-        below model."""
-        return gmm_sample(lwb, mub, sgb, gt.fit_lo, gt.fit_hi, uc, u)
+        below model; ``uc`` is ``[..., C, n_cand]`` (icdf) or ``[..., C,
+        n_cand, K_b]`` (gumbel)."""
+        return gmm_sample(lwb, mub, sgb, gt.fit_lo, gt.fit_hi, uc, u,
+                          gumbel=self.comp_sampler == "gumbel")
 
     def _cont_scores(self, g, gt, vals, active, below, above, prior_weight,
                      uc, u):
@@ -449,7 +515,8 @@ class _TpeKernel:
     def _cat_scores(self, u, vals, active, below, above, prior_weight):
         """Candidate values (offset applied) + scores: ``([..., D, n_cand]``
         twice), candidates drawn by inverse CDF from uniforms
-        ``u [..., D, n_cand]``."""
+        ``u [..., D, n_cand]``, or (gumbel) by the Gumbel-argmax trick from
+        ``u [..., D, n_cand, kmax]``."""
         ct = self._cat
         idx = vals[..., ct.pids] - ct.offsets               # [..., N, D]
         act = active[..., ct.pids]
@@ -471,8 +538,11 @@ class _TpeKernel:
 
         lpb = log_post(below)
         lpa = log_post(above)
-        cdf = prefix_sum(torch.exp(lpb), dim=-1)            # [..., D, kmax]
-        cand = icdf_pick(u, cdf, ct.last[:, None])
+        if self.comp_sampler == "gumbel":
+            cand = gumbel_pick(u, lpb)
+        else:
+            cdf = prefix_sum(torch.exp(lpb), dim=-1)        # [..., D, kmax]
+            cand = icdf_pick(u, cdf, ct.last[:, None])
         # Padded options are -inf on both sides; clamping each side to a
         # finite value keeps a selectable option with zero above-mass on
         # top of the argmax (its true ratio is +inf).
@@ -484,14 +554,23 @@ class _TpeKernel:
 
     def draw_noise(self, generator=None):
         """One lane's uniforms: ``{"cont": [(uc, u) per group], "cat":
-        u}`` with ``[C, n_cand]`` / ``[D, n_cand]`` shapes."""
+        u}`` with ``[C, n_cand]`` / ``[D, n_cand]`` shapes; with
+        ``comp_sampler="gumbel"``, ``uc`` is ``[C, n_cand, K_b]`` (``K_b``
+        the below mixture's components) and ``cat`` ``[D, n_cand, kmax]``:
+        the uniforms of the Gumbel draws."""
 
-        def r(rows):
-            return torch.rand((rows, self.n_cand), generator=generator,
-                              device=self.device, dtype=torch.float32)
+        def r(*shape):
+            return torch.rand(shape, generator=generator, device=self.device,
+                              dtype=torch.float32)
 
-        return {"cont": [(r(len(g)), r(len(g))) for g in self.groups],
-                "cat": r(len(self.cat_pids))}
+        n = self.n_cand
+        if self.comp_sampler == "gumbel":
+            k_b = min(self.lf, self.n_cap) + 1
+            return {"cont": [(r(len(g), n, k_b), r(len(g), n))
+                             for g in self.groups],
+                    "cat": r(len(self.cat_pids), n, self.cat_kmax)}
+        return {"cont": [(r(len(g), n), r(len(g), n)) for g in self.groups],
+                "cat": r(len(self.cat_pids), n)}
 
     def max_lanes(self):
         """The most lanes one step takes: the EI kernel's column axis
@@ -523,7 +602,8 @@ class _TpeKernel:
         :meth:`draw_noise` layout with a leading lane axis,
         :func:`stack_noise`).  ``ei_best`` is the winning EI score across
         the sheets and ``ei_ties`` counts candidates tying their sheet's
-        winner."""
+        winner; with ``multivariate``, the winning vector's joint score and
+        the vectors tying it (:meth:`_joint_winner`)."""
         n_lanes = loss.shape[0]
         if noise is None:
             gens = generators if generators is not None else [None] * n_lanes
@@ -544,6 +624,8 @@ class _TpeKernel:
             cv, score = self._cat_scores(noise["cat"], vals, active, below,
                                          above, prior_weight)
             cols.append((self._cat.pids, cv, score))
+        if self.multivariate:
+            return self._joint_winner(cols, n_lanes)
         for pids, v, ei in cols:
             bi, best, ties = ei_argmax_stats(ei)
             row[:, pids] = torch.gather(v, -1, bi[..., None])[..., 0]
@@ -551,6 +633,35 @@ class _TpeKernel:
             ei_ties = ei_ties + torch.sum(ties, dim=-1)
         act_row = self.cs.active_mask(row)
         return row, act_row, ei_best, ei_ties
+
+    def _joint_winner(self, cols, n_lanes):
+        """The multivariate winner of each lane from the column sheets
+        ``[(pids, v[L, C, n_cand], ei[L, C, n_cand]), ...]``: ``(row[L, P],
+        act[L, P], ei_best[L], ei_ties[L])``.
+
+        Candidate ``i`` of every column forms vector ``i``; under the
+        factorized Parzen model its joint EI surrogate is the sum of the
+        per-column scores over the columns active in it.  The sum runs in
+        a fixed order (``tree_sum``), so lane ``j`` equals its solo run.
+        Two ``-3e38`` fills in one vector (a far-tail lattice point, a
+        clamped categorical side) add up to ``-inf`` in float32, as in
+        the JAX step."""
+        n, p = self.n_cand, self.cs.n_params
+        dev = self.device
+        cand = torch.zeros((n_lanes, n, p), dtype=torch.float32, device=dev)
+        ei_cols = torch.zeros((n_lanes, n, p), dtype=torch.float32,
+                              device=dev)
+        for pids, v, ei in cols:
+            cand[:, :, pids] = v.transpose(-1, -2)
+            ei_cols[:, :, pids] = ei.transpose(-1, -2)
+        act = self.cs.active_mask(cand.view(n_lanes * n, p)).view(
+            n_lanes, n, p)
+        total = tree_sum(torch.where(act, ei_cols, torch.zeros_like(ei_cols)),
+                         dim=-1)                            # [L, n_cand]
+        bi, best, ties = ei_argmax_stats(total)
+        at = bi[:, None, None].expand(n_lanes, 1, p)
+        return (torch.gather(cand, 1, at)[:, 0],
+                torch.gather(act, 1, at)[:, 0], best, ties.to(torch.int64))
 
     def _suggest_one_tel(self, vals, active, loss, ok, gamma, prior_weight,
                          generator=None, noise=None):
@@ -725,27 +836,89 @@ def _bucket(n: int) -> int:
     return max(32, 1 << max(n - 1, 1).bit_length())
 
 
+#: Guards the per-space kernel caches of :func:`get_kernel`: the bucket
+#: prewarm thread (:func:`_prewarm_async`) and the suggest path may build
+#: the same kernel at once, and one of the two builds would be wasted.
+_KERNELS_LOCK = threading.Lock()
+# Prewarm threads started by _prewarm_async (pruned of finished ones).
+_PREWARMS: list = []
+
+
 def get_kernel(cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
                split: str = "sqrt", cat_prior: str = "sqrt",
                device="cuda", ei_impl: str = "vpu", ei_precision: str = "f32",
-               ei_topm: int = 0) -> _TpeKernel:
+               ei_topm: int = 0, multivariate: bool = False,
+               comp_sampler: str = "icdf", split_impl: str = "topk",
+               fused_step: bool = True) -> _TpeKernel:
     """The cached :class:`_TpeKernel` for these shapes and arguments.  Each
     lookup feeds ``kernel_cache_event``; a miss records the kernel's build
     time in the cost ledger (when armed)."""
-    cache = cs.__dict__.setdefault("_tpe_kernels", {})
     dev = torch.device(device)
     k = (n_cap, n_cand, lf, split, cat_prior, str(dev), ei_impl,
-         ei_precision, int(ei_topm))
-    hit = k in cache
-    if not hit:
-        t0 = perf_counter()
-        cache[k] = _TpeKernel(cs, n_cap, n_cand, lf, split, cat_prior, dev,
-                              ei_impl, ei_precision, ei_topm)
-        cache[k].cost_key = k
-        _costs.record_compile("tpe", k, n_cap=n_cap, P=cs.n_params, m=1,
-                              compile_s=perf_counter() - t0)
+         ei_precision, int(ei_topm), bool(multivariate), comp_sampler,
+         split_impl, bool(fused_step))
+    with _KERNELS_LOCK:
+        cache = cs.__dict__.setdefault("_tpe_kernels", {})
+        hit = k in cache
+        if not hit:
+            t0 = perf_counter()
+            cache[k] = _TpeKernel(cs, n_cap, n_cand, lf, split, cat_prior,
+                                  dev, ei_impl, ei_precision, ei_topm,
+                                  multivariate, comp_sampler, split_impl,
+                                  fused_step)
+            cache[k].cost_key = k
+            _costs.record_compile("tpe", k, n_cap=n_cap, P=cs.n_params, m=1,
+                                  compile_s=perf_counter() - t0)
+        kern = cache[k]
     kernel_cache_event(k, hit)
-    return cache[k]
+    return kern
+
+
+def _prewarm_async(kern: _TpeKernel, n: int = 1):
+    """Build the next history bucket's kernel (``2·kern.n_cap``, the same
+    arguments) in a daemon thread, and return the thread; None when it is
+    built or being built already.
+
+    The JAX package compiles that bucket's program ahead here; the port
+    has no compile, and what the call that crosses the boundary would pay
+    is the kernel's construction (its column groups, lattice tables and
+    constants uploaded to the device).  ``n`` is the proposals per call
+    the next bucket serves (JAX warms the n-proposal program); the port's
+    kernel is the same for every ``n``, so one build serves them all.
+    Best-effort: a failure leaves the suggest path to build the kernel
+    itself."""
+    del n
+    with _KERNELS_LOCK:
+        if getattr(kern, "_prewarmed", False):
+            return None
+        kern._prewarmed = True
+
+    def go():
+        try:
+            get_kernel(kern.cs, kern.n_cap * 2, kern.n_cand, kern.lf,
+                       kern.split, kern.cat_prior, kern.device, kern.ei_impl,
+                       kern.ei_precision, kern.ei_topm, kern.multivariate,
+                       kern.comp_sampler, kern.split_impl, kern.fused_step)
+        except Exception:
+            logging.getLogger(__name__).debug("bucket prewarm failed",
+                                              exc_info=True)
+
+    t = threading.Thread(target=go, daemon=True,
+                         name=f"tpe-prewarm-{kern.n_cap * 2}")
+    with _KERNELS_LOCK:
+        t.start()
+        _PREWARMS[:] = [p for p in _PREWARMS if p.is_alive()] + [t]
+    return t
+
+
+def wait_prewarm():
+    """Join the prewarm threads still running.  Device mode calls it before
+    a capture: a thread uploading a kernel's constants while a graph is
+    being captured would break the capture."""
+    with _KERNELS_LOCK:
+        threads = list(_PREWARMS)
+    for t in threads:
+        t.join()
 
 
 def _batch_size_for(n):
@@ -789,6 +962,30 @@ def _with_inflight_fantasies(h, trials, cs):
         ok=np.concatenate([h["ok"], np.ones(len(pv), bool)]))
 
 
+def _startup_batch(startup, new_ids, domain, trials, seed):
+    """The startup sampler's ``(vals[n, P], active[n, P])``: ``None`` or
+    ``"rand"`` random search (device tensors), ``"qmc"``/``"sobol"``/
+    ``"halton"`` a low-discrepancy sequence (``qmc.py``, host arrays), a
+    module with ``suggest_batch``, or a callable of the same contract."""
+    if startup in (None, "rand"):
+        return rand.suggest_batch(new_ids, domain, trials, seed)
+    if startup in ("qmc", "sobol", "halton"):
+        from . import qmc
+
+        eng = "halton" if startup == "halton" else "sobol"
+        return qmc.suggest_batch(new_ids, domain, trials, seed, engine=eng)
+    if hasattr(startup, "suggest_batch"):
+        return startup.suggest_batch(new_ids, domain, trials, seed)
+    out = startup(new_ids, domain, trials, seed)
+    if not (isinstance(out, tuple) and len(out) == 2):
+        raise TypeError(
+            "startup callable must return (vals[n, P], active[n, P]), got "
+            f"{type(out).__name__}. Pass a module with .suggest_batch (e.g. "
+            "startup=qmc) or the string 'qmc', not a doc-returning suggest "
+            "function.")
+    return out
+
+
 def suggest(new_ids, domain, trials, seed,
             prior_weight=_default_prior_weight,
             n_startup_jobs=_default_n_startup_jobs,
@@ -796,17 +993,20 @@ def suggest(new_ids, domain, trials, seed,
             gamma=_default_gamma,
             linear_forgetting=_default_linear_forgetting,
             split="sqrt", cat_prior="sqrt", ei_impl="vpu",
-            ei_precision="f32", ei_topm=0, resident=True):
+            ei_precision="f32", ei_topm=0, resident=True,
+            multivariate=False, startup=None, comp_sampler="icdf",
+            split_impl="topk", fused_step=True, verbose=True):
     """TPE suggest: trial docs for ``new_ids``.  Bind hyperparameters with
     ``functools.partial(tpe.suggest, n_EI_candidates=...)``; the keywords
     are those of :func:`suggest_dispatch`."""
-    handle = suggest_dispatch(
+    return suggest_materialize(suggest_dispatch(
         new_ids, domain, trials, seed, prior_weight=prior_weight,
         n_startup_jobs=n_startup_jobs, n_EI_candidates=n_EI_candidates,
         gamma=gamma, linear_forgetting=linear_forgetting, split=split,
         cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
-        ei_topm=ei_topm, resident=resident)
-    return suggest_materialize(handle)
+        ei_topm=ei_topm, resident=resident, multivariate=multivariate,
+        startup=startup, comp_sampler=comp_sampler, split_impl=split_impl,
+        fused_step=fused_step, verbose=verbose))
 
 
 def suggest_batch(new_ids, domain, trials, seed,
@@ -816,14 +1016,18 @@ def suggest_batch(new_ids, domain, trials, seed,
                   gamma=_default_gamma,
                   linear_forgetting=_default_linear_forgetting,
                   split="sqrt", cat_prior="sqrt", ei_impl="vpu",
-                  ei_precision="f32", ei_topm=0, resident=True):
+                  ei_precision="f32", ei_topm=0, resident=True,
+                  multivariate=False, startup=None, comp_sampler="icdf",
+                  split_impl="topk", fused_step=True, verbose=True):
     """Raw ``(vals[n, P], active[n, P])`` host arrays, without docs."""
     return _force_rows(suggest_dispatch(
         new_ids, domain, trials, seed, prior_weight=prior_weight,
         n_startup_jobs=n_startup_jobs, n_EI_candidates=n_EI_candidates,
         gamma=gamma, linear_forgetting=linear_forgetting, split=split,
         cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
-        ei_topm=ei_topm, resident=resident))
+        ei_topm=ei_topm, resident=resident, multivariate=multivariate,
+        startup=startup, comp_sampler=comp_sampler, split_impl=split_impl,
+        fused_step=fused_step, verbose=verbose))
 
 
 def suggest_dispatch(new_ids, domain, trials, seed,
@@ -833,22 +1037,30 @@ def suggest_dispatch(new_ids, domain, trials, seed,
                      gamma=_default_gamma,
                      linear_forgetting=_default_linear_forgetting,
                      split="sqrt", cat_prior="sqrt", ei_impl="vpu",
-                     ei_precision="f32", ei_topm=0, resident=True):
+                     ei_precision="f32", ei_topm=0, resident=True,
+                     multivariate=False, startup=None, comp_sampler="icdf",
+                     split_impl="topk", fused_step=True, verbose=True):
     """Start the suggest computation on the space's device; returns a
     handle for :func:`suggest_materialize`.  The history is read now.
 
     ``ei_impl`` (``"vpu"``/``"mxu"``), ``ei_precision`` (``"f32"``/
     ``"bf16"``) and ``ei_topm`` pick the EI lowering (:class:`_TpeKernel`);
+    ``multivariate=True`` picks the joint winner, ``comp_sampler``,
+    ``split_impl`` and ``fused_step`` the lowerings of the JAX package's
+    environment switches (module doc).  ``startup`` picks the sampler of
+    the first ``n_startup_jobs`` trials (:func:`_startup_batch`).
     ``resident=False`` pads the history on the host and uploads it whole
     instead of feeding from the resident ring (the same tensors either
     way).  ``n > 1`` new ids past startup run ``m = _batch_size_for(n)``
-    constant-liar steps in a bucket with ``m`` rows of slack.
+    constant-liar steps in a bucket with ``m`` rows of slack.  ``verbose``
+    is accepted for the reference's signature and does nothing.
 
     Handle: ``(tag, cs, new_ids, rows, exp_key)`` with ``rows`` a host
-    ``(vals, active)`` pair ("ready": empty space or random startup) or
-    a :class:`_PendingRows` over device rows not yet fetched ("pending":
+    ``(vals, active)`` pair ("ready": empty space or startup) or a
+    :class:`_PendingRows` over device rows not yet fetched ("pending":
     ``[P]`` for one proposal, ``[m, P]`` for a batch)."""
     _check_ei_args(ei_impl, ei_precision, ei_topm)
+    _check_lowerings(comp_sampler, split_impl, fused_step)
     cs = domain.cs
     dev = resolve_device(cs.device)
     n = len(new_ids)
@@ -859,9 +1071,13 @@ def suggest_dispatch(new_ids, domain, trials, seed,
                  np.ones((n, cs.n_params), bool)), exp_key)
     h = trials.history(cs)
     if int(h["ok"].sum()) < n_startup_jobs:
-        v, _ = rand.suggest_batch(new_ids, domain, trials, seed)
-        v = v.cpu().numpy()
-        return ("ready", cs, list(new_ids), (v, cs.active_mask_host(v)),
+        v, a = _startup_batch(startup, new_ids, domain, trials, seed)
+        if isinstance(v, torch.Tensor):
+            # Device draws: fetch the values only, the mask is a host
+            # function of them.
+            v = v.cpu().numpy()
+            a = cs.active_mask_host(v)
+        return ("ready", cs, list(new_ids), (np.asarray(v), np.asarray(a)),
                 exp_key)
     if resident:
         # In-flight rows become a copy's slack rows on the device: a host
@@ -874,11 +1090,14 @@ def suggest_dispatch(new_ids, domain, trials, seed,
     m = _batch_size_for(n)
     kern = get_kernel(cs, _bucket(n_rows + (m if n > 1 else 0)),
                       int(n_EI_candidates), int(linear_forgetting), split,
-                      cat_prior, dev, ei_impl, ei_precision, ei_topm)
-    if resident:
-        if n_rows >= 0.75 * kern.n_cap:
-            # Near the bucket boundary: pad-copy to the next bucket now,
-            # so that the call that crosses it pays no copy.
+                      cat_prior, dev, ei_impl, ei_precision, ei_topm,
+                      multivariate, comp_sampler, split_impl, fused_step)
+    if n_rows >= 0.75 * kern.n_cap:
+        # Near the bucket boundary: build the next bucket's kernel off this
+        # thread, and (resident) pad-copy the ring to it, so that the call
+        # that crosses the boundary pays neither.
+        _prewarm_async(kern, n=m)
+        if resident:
             history.pregrow(trials, cs, kern.n_cap * 2, dev)
     t_feed = perf_counter()
     if resident:
@@ -1032,3 +1251,23 @@ suggest.materialize = suggest_materialize
 suggest.start_transfer = suggest_start_transfer
 suggest.handle_ready = suggest_handle_ready
 suggest.introspect = introspect
+
+
+def suggest_quantile(new_ids, domain, trials, seed, **kwargs):
+    """TPE with the TPE paper's γ-quantile split (``n_below = ceil(gamma·N)``,
+    capped at ``linear_forgetting``) in place of ``gamma·sqrt(N)``; every
+    other keyword as :func:`suggest`."""
+    kwargs.setdefault("split", "quantile")
+    return suggest(new_ids, domain, trials, seed, **kwargs)
+
+
+def _quantile_dispatch(new_ids, domain, trials, seed, **kwargs):
+    kwargs.setdefault("split", "quantile")
+    return suggest_dispatch(new_ids, domain, trials, seed, **kwargs)
+
+
+suggest_quantile.dispatch = _quantile_dispatch
+suggest_quantile.materialize = suggest_materialize
+suggest_quantile.start_transfer = suggest_start_transfer
+suggest_quantile.handle_ready = suggest_handle_ready
+suggest_quantile.introspect = introspect

@@ -293,7 +293,9 @@ def test_non_tpe_algo_rejected():
     with pytest.raises(ValueError, match="device"):
         _device(quad_dev, SPACE_QUAD, seed=0, stride=None, n=4,
                 algo=rand.suggest)
-    for kw in (dict(multivariate=True), dict(resident=False)):
+    # multivariate=True is captured since the joint step was ported
+    # (tests/test_torch_multivariate.py); a misspelt keyword stays refused.
+    for kw in (dict(n_EI_candidate=8), dict(resident=False)):
         with pytest.raises(ValueError, match="cannot honor"):
             _device(quad_dev, SPACE_QUAD, seed=0, stride=None, n=4,
                     algo=partial(tpe.suggest, **kw))

@@ -420,9 +420,12 @@ def test_fmin_fleet_validation():
     with pytest.raises(NotImplementedError, match="dispatch slice"):
         fleet.fmin_fleet(obj, FLEET_SPACE, n_lanes=2, max_evals=4,
                          mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="TPE slice"):
+    # multivariate=True runs since the joint step was ported
+    # (tests/test_torch_multivariate.py); a lowering it does not know
+    # raises.
+    with pytest.raises(ValueError, match="comp_sampler"):
         fleet.fmin_fleet(obj, FLEET_SPACE, n_lanes=2, max_evals=4,
-                         multivariate=True, device=CPU)
+                         comp_sampler="bogus", device=CPU)
 
 
 def test_fmin_device_n_runs_shapes_and_parity():

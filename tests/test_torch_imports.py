@@ -62,12 +62,17 @@ def test_imports_with_jax_blocked():
         "import hyperopt_tpu_torch.obs, hyperopt_tpu_torch.obs.devtel\n"
         "import hyperopt_tpu_torch.obs.trace, hyperopt_tpu_torch.faults\n"
         "import hyperopt_tpu_torch.pipeline, hyperopt_tpu_torch.parallel\n"
+        "import hyperopt_tpu_torch.qmc, hyperopt_tpu_torch.criteria\n"
+        "import hyperopt_tpu_torch.rdists, hyperopt_tpu_torch.pyll_shim\n"
+        "import hyperopt_tpu_torch.graphviz, hyperopt_tpu_torch.plotting\n"
+        "import hyperopt_tpu_torch.utils, hyperopt_tpu_torch.pyll\n"
         "sys.path.insert(0, 'tests_torch_cuda')\n"
         "import conftest, test_torch_cuda_device, test_torch_cuda_ei_scores\n"
         "import test_torch_cuda_fleet, test_torch_cuda_obs\n"
-        "import test_torch_cuda_pipeline\n"
+        "import test_torch_cuda_pipeline, test_torch_cuda_tpe_rest\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hyperopt_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
