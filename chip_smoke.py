@@ -123,7 +123,25 @@ Phases, each fatal on failure:
                once per TPE step, and the host ms of the first step past
                the 1,024 bucket against a steady one, with and without the
                next bucket's kernel built ahead (``_prewarm_async``).
-11. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
+11. heads     the other suggest heads at the same width: (a) every
+               registry name resolves, and ``fmin(algo="<name>")`` runs 16
+               hosted trials after the 1,000-trial history for each unique
+               head (rand, qmc, halton, tpe, tpe_quantile, tpe_sobol,
+               tpe_mv, anneal, atpe, gp, es) and a mix of rand, gp and
+               tpe: nothing left NEW or RUNNING, every value in bounds, K1
+               once per TPE-family suggest and per ATPE pick and never for
+               the others; (b) ATPE, 64 trials, each of its 8 arms forced
+               once through the bandit state, and K1 against its plain
+               version at 31 x 128, 256 and 512 candidates; (c) GP (64
+               candidates, 256 rows fitted) and ES (8 per generation, 128
+               generations): host ms and card ms per dispatch of 1 and 8
+               proposals, a warm dispatch and its copy under
+               ``set_sync_debug_mode("error")``, and card rows equal to
+               CPU rows on the same draws at a small size; (d) anneal, a
+               batch of 8 in one call, card rows equal to CPU rows on the
+               same noise; (e) ``run_conformance`` for every unique head on
+               the card, and ``fmin(overlap_depth=2)`` with gp and es.
+12. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
                and every collected test passed.
 
 Prints the card's name and power limit first and again before the
@@ -247,6 +265,18 @@ REST_PIPE = 64
 REST_BUCKET = 1024
 REST_BUCKET_HISTORY = 1020
 REST_BUCKET_STEPS = 10
+# heads: the unique heads of the backend registry (each run for
+# HEADS_MORE hosted trials after the history), the TPE family among them,
+# ATPE's trials in (b), timed GP/ES dispatches per size in (c), and the
+# candidate counts at which K1 is held against its plain version (tpe_mv's
+# and ATPE's at the flagship width).
+HEADS = ["rand", "qmc", "halton", "tpe", "tpe_quantile", "tpe_sobol",
+         "tpe_mv", "anneal", "atpe", "gp", "es"]
+TPE_FAMILY = {"tpe", "tpe_quantile", "tpe_sobol", "tpe_mv"}
+HEADS_MORE = 16
+HEADS_ATPE = 64
+HEADS_TIMED = 10
+HEADS_K1_CANDIDATES = (128, 256, 512)
 # Kernel symbol of each lowering, as the profiler names it.
 KERNEL_SYMBOLS = {"f32": "ei_scores_kernel<false>",
                   "bf16": "ei_scores_kernel<true>",
@@ -1791,20 +1821,16 @@ def check_settled(what, trials, finite=True):
         fail(f"pipeline {what}: a trial is not DONE with a finite loss")
 
 
-def sync_free_dispatch(space, history0, dev):
-    """One full-width TPE dispatch and ``start_transfer`` under
-    ``torch.cuda.set_sync_debug_mode("error")``, on a warm kernel and a
-    warm ring, with new rows to append and trials in flight: neither the
-    upload, the fantasy overlay, the step nor the copy may synchronize."""
+def with_new_rows(space, history0, dev):
+    """A domain on ``dev``, a Trials holding ``history0``, and the docs of
+    5 more finished trials and 3 running ones (tids after the history), to
+    insert after a warm dispatch so that the next one appends rows and
+    overlays in-flight ones."""
     domain = base.Domain(objective, space)
     domain.cs.device = dev
     trials = base.trials_from_docs(copy.deepcopy(history0))
-    cs = domain.cs
-    tpe.suggest_materialize(tpe.suggest_dispatch(
-        trials.new_trial_ids(1), domain, trials, 1, n_EI_candidates=N_CAND))
-    more = synthetic_trials(cs, 8, 9, dev)
-    docs = copy.deepcopy(list(more))
-    for i, d in enumerate(docs):
+    more = copy.deepcopy(list(synthetic_trials(domain.cs, 8, 9, dev)))
+    for i, d in enumerate(more):
         d["tid"] = d["misc"]["tid"] = N_HISTORY + i
         for k in d["misc"]["idxs"]:
             if d["misc"]["idxs"][k]:
@@ -1812,6 +1838,18 @@ def sync_free_dispatch(space, history0, dev):
         if i >= 5:
             d["state"] = base.JOB_STATE_RUNNING
             d["result"] = {"status": base.STATUS_RUNNING}
+    return domain, trials, more
+
+
+def sync_free_dispatch(space, history0, dev):
+    """One full-width TPE dispatch and ``start_transfer`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, on a warm kernel and a
+    warm ring, with new rows to append and trials in flight: neither the
+    upload, the fantasy overlay, the step nor the copy may synchronize."""
+    domain, trials, docs = with_new_rows(space, history0, dev)
+    cs = domain.cs
+    tpe.suggest_materialize(tpe.suggest_dispatch(
+        trials.new_trial_ids(1), domain, trials, 1, n_EI_candidates=N_CAND))
     trials.insert_trial_docs(docs)
     trials.refresh()
     b0 = history.upload_bytes
@@ -2409,6 +2447,325 @@ def phase_tpe_rest(dev, hosted):
     return tally.rows()
 
 
+# -- the other suggest heads ------------------------------------------------------
+
+
+def settled_in_bounds(what, cs, trials, first):
+    """No trial NEW or RUNNING, no tid twice, finite losses, and every
+    active value of the trials from index ``first`` on inside its prior's
+    support."""
+    check_settled(what, trials)
+    h = trials.history(cs)
+    for row, act in zip(h["vals"][first:], h["active"][first:]):
+        bad = [lb for lb in in_bounds(cs, row) if act[cs.by_label[lb].pid]]
+        if bad:
+            fail(f"heads {what}: a proposal lies outside the space: {bad}")
+
+
+def heads_fmin(space, history0, algo, more, seed, **kw):
+    """``more`` hosted trials after ``history0``, with no ``device=``: the
+    entry point's default, CUDA."""
+    trials = base.trials_from_docs(copy.deepcopy(history0))
+    ho.fmin(objective, space, algo=algo, max_evals=N_HISTORY + more,
+            trials=trials, rstate=np.random.default_rng(seed),
+            show_progressbar=False, **kw)
+    return trials
+
+
+def heads_sync_free(head, name, space, history0, dev, n):
+    """A warm full-width dispatch of ``head`` and its ``start_transfer``
+    under ``set_sync_debug_mode("error")``, with 5 new rows to append and
+    3 trials in flight."""
+    domain, trials, more = with_new_rows(space, history0, dev)
+    ids = list(range(N_HISTORY + 8, N_HISTORY + 8 + n))
+    head.suggest(ids, domain, trials, 1)
+    trials.insert_trial_docs(more)
+    trials.refresh()
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = head.suggest.dispatch(ids, domain, trials, 2)
+        head.suggest.start_transfer(handle)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    if handle[0] != "pending" or not handle[3].host.is_pinned():
+        fail(f"heads {name}: the dispatch's copy did not start into pinned "
+             f"memory")
+    docs = head.suggest.materialize(handle)
+    if [d["tid"] for d in docs] != ids:
+        fail(f"heads {name}: the synchronization-free dispatch lost rows")
+
+
+def heads_dispatch_ms(head, name, domain, trials, n):
+    """Host ms per dispatch (the enqueue) and card ms between CUDA events
+    around it, medians over ``HEADS_TIMED`` warm dispatches of ``n``
+    proposals; then one dispatch + fetch per step under the profiler."""
+    ids = list(range(N_HISTORY, N_HISTORY + n))
+    head.suggest(ids, domain, trials, 0)
+    host, card = [], []
+    for r in range(HEADS_TIMED):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        handle = head.suggest.dispatch(ids, domain, trials, r + 1)
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        card.append(start.elapsed_time(end))
+        head.suggest.materialize(handle)
+    prof = profile_steps(lambda s: head.suggest(ids, domain, trials, 50 + s),
+                         n=3, label=f"heads {name} n={n}")
+    print(f"heads {name} n={n}: host ms per dispatch median "
+          f"{np.median(host):.3f} (min {min(host):.3f}, max "
+          f"{max(host):.3f}); card ms per dispatch between events median "
+          f"{np.median(card):.3f} (min {min(card):.3f}, max "
+          f"{max(card):.3f}); busy ms per suggest {prof['busy_ms']:.3f}, "
+          f"kernels per suggest {prof['kernels']:.1f}")
+
+
+def heads_rows_close(what, got, want):
+    """Categorical and integer values equal, the others within 1e-5."""
+    for g, w in zip(got, want):
+        gv, wv = g["misc"]["vals"], w["misc"]["vals"]
+        for label in wv:
+            a, b = gv[label], wv[label]
+            if len(a) != len(b) or (a and not math.isclose(
+                    a[0], b[0], rel_tol=1e-5, abs_tol=1e-5)):
+                fail(f"heads {what}: card and CPU differ at {label}: "
+                     f"{a} against {b}")
+
+
+def heads_gp_card_vs_cpu(small, trials, cand, dev, m=8):
+    """GP's program on the card and on the CPU over one history and the
+    same candidate sweeps, step by step: the grid's log marginal
+    likelihoods within 1e-3 of their size (float32 Cholesky factors of
+    cuSOLVER and LAPACK) and its pick equal; each liar step's pick and row
+    equal, its standardized mu and sigma within 1e-2 and its EI within
+    1e-2 of the best EI, while the CPU's EI separates its best two
+    candidates (a lead over 5e-2 of the best, which is over 1e-6).  The
+    tolerance is the float32 conditioning of the fit: with noise 1e-4 and
+    a long length-scale the kernel matrix's condition number reaches
+    ~1e5, and the two libraries' factors give solves that differ in the
+    third digit.  After the first step whose EI does not separate (the EI
+    of a confident fit underflows to 0 within a few steps), the two
+    follow different lies and the comparison stops.  Returns the steps
+    compared and the largest differences; the first step must be
+    compared."""
+    from hyperopt_tpu_torch.backends import gp
+
+    h = trials.history(small.cs)
+    n_cap = tpe._bucket(len(h["loss"]))
+    hist = history._padded_history(h, n_cap)
+    runs = []
+    for d in (torch.device("cpu"), dev):
+        prog = gp._GpProgram(small.cs, n_cap, len(cand[0][0]), m, 256, d)
+        trace = []
+        rows = prog(*[torch.as_tensor(a, device=d) for a in hist],
+                    cand=cand, trace=trace)
+        runs.append((rows.cpu(), [{k: v.cpu().double() for k, v in t.items()}
+                                  for t in trace]))
+    (rows_c, tc), (rows_g, tg) = runs
+    diffs = {"scores": float((tc[0]["scores"] - tg[0]["scores"]).abs()
+                             .max())}
+    if int(tc[0]["pick"]) != int(tg[0]["pick"]) or not torch.allclose(
+            tc[0]["scores"], tg[0]["scores"], rtol=1e-3, atol=1e-3):
+        fail(f"heads (c) gp: grid scores {tg[0]['scores'].tolist()} on the "
+             f"card against {tc[0]['scores'].tolist()}")
+    agreed = 0
+    for i, (c, g) in enumerate(zip(tc[1:], tg[1:])):
+        top = torch.topk(c["ei"], 2).values
+        if not (top[0] > 1e-6 and top[0] - top[1] > 5e-2 * top[0]):
+            break
+        if int(c["pick"]) != int(g["pick"]) or not torch.equal(
+                rows_c[i], rows_g[i]):
+            fail(f"heads (c) gp: step {i} picks {int(g['pick'])} on the "
+                 f"card, {int(c['pick'])} on the CPU")
+        for k, tol in (("mu", 1e-2), ("sigma", 1e-2),
+                       ("ei", 1e-2 * float(top[0]))):
+            d = float((c[k] - g[k]).abs().max())
+            diffs[k] = max(diffs.get(k, 0.0), d)
+            if d > tol:
+                fail(f"heads (c) gp: step {i} {k} differs by {d:.3g}")
+        agreed += 1
+    if agreed == 0:
+        fail("heads (c) gp: the first liar step's EI does not separate "
+             "its best candidates; pick another history")
+    return agreed, diffs
+
+
+def phase_heads(dev):
+    """The other suggest heads at full width, checks (a) to (e).  Returns
+    ``({lowering: (eager launches, 0, 0)}, K1's max abs error at ATPE's and
+    tpe_mv's candidate counts)``."""
+    from hyperopt_tpu_torch import anneal, atpe, backends, mix
+    from hyperopt_tpu_torch.backends import contract, es, gp
+
+    atpe.set_transfer_store(None)
+    metrics.set_enabled(True)
+    space = flagship_space()
+    cs = compile_space(space)
+    history0 = list(synthetic_trials(cs, N_HISTORY, 6, dev))
+    tally = Tally()
+    reg = metrics.registry()
+    t_phase = time.perf_counter()
+
+    def launched(what, n):
+        by = dict(ei_mod.ei_scores.launches_by)
+        if by != {k: n * (k == "f32") for k in by}:
+            fail(f"heads {what}: EI launches {by}, wanted {n} of f32")
+
+    # (a) every name resolves; 16 hosted trials per unique head, on the
+    # entry point's default device.
+    for name in backends.names():
+        if not callable(backends.resolve(name)):
+            fail(f"heads (a): {name} does not resolve to a callable")
+    runs = [(name, name) for name in HEADS] + [(
+        "mix", partial(mix.suggest, p_suggest=[(0.3, "rand"), (0.3, "gp"),
+                                               (0.4, "tpe")]))]
+    for i, (name, algo) in enumerate(runs):
+        picks0 = reg.counter("backend.tpe.resolved").value
+        t0 = time.perf_counter()
+        trials = tally.counted("f32", partial(
+            heads_fmin, space, history0, algo, HEADS_MORE, 10 + i))
+        secs = time.perf_counter() - t0
+        if name in TPE_FAMILY or name == "atpe":
+            want = HEADS_MORE
+        elif name == "mix":
+            want = int(reg.counter("backend.tpe.resolved").value - picks0)
+        else:
+            want = 0
+        launched(f"(a) {name}", want)
+        settled_in_bounds(f"heads (a) {name}", cs, trials, N_HISTORY)
+        print(f"heads (a) {name}: {HEADS_MORE} trials after the history in "
+              f"{secs:.2f} s, K1 launches {want}")
+
+    # (b) ATPE, 64 trials; each arm forced once through the bandit state.
+    trials = base.trials_from_docs(copy.deepcopy(history0))
+    arms = atpe._portfolio(cs)
+    st = atpe._state(trials, cs, len(arms))
+    forced = list(range(len(arms)))
+    picked0 = {k: reg.counter(f"atpe.arm.{k}.picked").value
+               for k in range(len(arms))}
+
+    def forcing(new_ids, domain, trials, seed):
+        k = forced.pop(0) if forced else None
+        if k is not None:
+            st.wins[k] += 1e12
+        try:
+            return atpe.suggest(new_ids, domain, trials, seed)
+        finally:
+            if k is not None:
+                st.wins[k] -= 1e12
+
+    t0 = time.perf_counter()
+    tally.counted("f32", lambda: ho.fmin(
+        objective, space, algo=forcing, max_evals=N_HISTORY + HEADS_ATPE,
+        trials=trials, rstate=np.random.default_rng(20),
+        show_progressbar=False))
+    secs = time.perf_counter() - t0
+    launched("(b) atpe", HEADS_ATPE)
+    settled_in_bounds("heads (b) atpe", cs, trials, N_HISTORY)
+    picks = {k: int(reg.counter(f"atpe.arm.{k}.picked").value - picked0[k])
+             for k in range(len(arms))}
+    if min(picks.values()) < 1 or sum(picks.values()) != HEADS_ATPE:
+        fail(f"heads (b): ATPE arm picks {picks}")
+    cands = sorted({a["n_EI_candidates"] for a in arms})
+    print(f"heads (b) atpe: {HEADS_ATPE} trials in {secs:.2f} s, arm picks "
+          f"{picks}, arms' candidate counts {cands}, K1 launches "
+          f"{HEADS_ATPE}, wins {st.wins.tolist()}")
+    rng = np.random.default_rng(3)
+    below = random_mixture(rng, 31, 26, 25, dev)
+    above = random_mixture(rng, 31, 1025, 1022, dev)
+    err_max = 0.0
+    for n_cand in HEADS_K1_CANDIDATES:
+        z = torch.as_tensor(rng.normal(0, 3, (31, n_cand)).astype(np.float32),
+                            device=dev)
+        got = ei_mod.ei_scores(z, *below, *above)
+        torch.cuda.synchronize()
+        ref = ei_mod.ei_scores_reference(z, *below, *above)
+        err, used, near = compare(got, ref, f"heads K1 31x{n_cand}",
+                                  TOL["f32"])
+        err_max = max(err_max, err)
+        ms = cuda_ms(lambda: ei_mod.ei_scores(z, *below, *above))
+        plain = cuda_ms(lambda: ei_mod.ei_scores_reference(z, *below, *above))
+        bound, by = ei_bound_ms(z, below[0], above[0], "f32")
+        print(f"heads K1 31x{n_cand} (K_b=26, K_a=1025, bucket 1,024): "
+              f"max_abs_err={err:.3g} tol_used={used:.3g} "
+              f"near_tie_columns={near} kernel_ms={ms:.4f} "
+              f"plain_ms={plain:.4f} bound_ms={bound:.4f} ({by})")
+
+    # (c) GP and ES: card and host ms per dispatch; synchronization-free
+    # dispatches; card rows equal CPU rows on the same draws.
+    domain = base.Domain(objective, space)
+    domain.cs.device = dev
+    trials = base.trials_from_docs(copy.deepcopy(history0))
+    for head, name in ((gp, "gp"), (es, "es")):
+        for n in (1, 8):
+            heads_dispatch_ms(head, name, domain, trials, n)
+            heads_sync_free(head, name, space, history0, dev, n)
+        print(f"heads (c) {name}: warm dispatches of 1 and 8 and their "
+              f"start_transfer ran under set_sync_debug_mode('error')")
+    # One space, one history: the calls switch the space's device.
+    small = contract.conformance_domain(dev)
+    small_trials = contract.seeded_trials(small, n=40, seed=1)
+    cand = [small.cs.sample(32, generator=make_generator("cpu", i),
+                            device="cpu") for i in range(8)]
+    eps = torch.randn((4, small.cs.n_params),
+                      generator=make_generator("cpu", 5))
+    ids = list(range(40, 48))
+    small.cs.device = "cpu"
+    want = es.suggest(ids, small, small_trials, 3, noise=eps)
+    small.cs.device = dev
+    heads_rows_close("(c) es", es.suggest(ids, small, small_trials, 3,
+                                          noise=eps), want)
+    agreed, diffs = heads_gp_card_vs_cpu(small, small_trials, cand, dev)
+    print(f"heads (c): es (8 proposals) on the card equals the CPU's rows "
+          f"on the same eps; gp (8 liar steps, 32 candidates each) equals "
+          f"the CPU's grid pick and rows for its first {agreed} steps, up "
+          f"to the first whose EI no longer separates its best two "
+          f"candidates; largest differences "
+          + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items()))
+
+    # (d) anneal: a batch of 8 in one call, card against CPU on one noise.
+    noise = anneal._get_kernel(cs, torch.device("cpu")).draw_noise(
+        8, make_generator("cpu", 8))
+    ids = list(range(N_HISTORY, N_HISTORY + 8))
+    cs.device = "cpu"
+    want = anneal.suggest(ids, domain, trials, 4, noise=noise)
+    cs.device = dev
+    t0 = time.perf_counter()
+    got = anneal.suggest(ids, domain, trials, 4, noise=noise)
+    ms = (time.perf_counter() - t0) * 1e3
+    heads_rows_close("(d) anneal", got, want)
+    prof = profile_steps(lambda s: anneal.suggest(ids, domain, trials, s),
+                         n=3, label="heads anneal n=8")
+    print(f"heads (d) anneal: a batch of 8 in one call, {ms:.3f} ms, card "
+          f"rows equal the CPU's on the same noise; busy ms "
+          f"{prof['busy_ms']:.3f}, kernels {prof['kernels']:.1f}")
+
+    # (e) the conformance suite on the card, and depth-2 GP and ES runs.
+    t0 = time.perf_counter()
+    for name in HEADS:
+        out = contract.run_conformance(backends.resolve(name), device=dev)
+        if set(out) != set(contract.CONFORMANCE_CHECKS):
+            fail(f"heads (e): {name} conformance {out}")
+    print(f"heads (e): run_conformance passed for {len(HEADS)} heads on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
+    for name in ("gp", "es"):
+        trials = heads_fmin(space, history0, name, HEADS_MORE, 30,
+                            overlap_depth=2)
+        settled_in_bounds(f"heads (e) {name} depth 2", cs, trials, N_HISTORY)
+    print(f"heads (e): fmin(overlap_depth=2) with gp and es, "
+          f"{HEADS_MORE} trials each after the history")
+    print(f"heads: EI wrapper over the phase's counted runs: eager launches "
+          f"{tally.launches}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return tally.rows(), err_max
+
+
 def phase_card_tests():
     """``python -m pytest tests_torch_cuda`` in a subprocess: it must exit
     0 with every collected test passed."""
@@ -2457,6 +2814,7 @@ def main():
     obs_launches = phase_obs(dev)
     pipeline_launches = phase_pipeline(dev)
     rest_launches = phase_tpe_rest(dev, hosted)
+    heads_launches, heads_err = phase_heads(dev)
     phase_card_tests()
     print(f"total seconds {time.perf_counter() - t0:.1f}")
     rows = []
@@ -2465,7 +2823,8 @@ def main():
         # its run: the fmin phase (f32), this lowering's liar_batch run,
         # device_mode's, the fleet's, obs's and tpe_rest's eager warm-up
         # steps, the cohort dispatches, obs's hosted runs, the pipeline
-        # phase's runs and tpe_rest's hosted runs.  A capture records
+        # phase's runs, tpe_rest's hosted runs and the heads phase's
+        # hosted runs (K1 only).  A capture records
         # the launch into its graph without running it (graph_recorded);
         # graph_replays counts replays of graphs that hold the kernel, one
         # kernel run each (for all lanes) by the profiler's count in
@@ -2477,10 +2836,13 @@ def main():
                                         fleet_launches[low],
                                         obs_launches[low],
                                         pipeline_launches[low],
-                                        rest_launches[low]))
+                                        rest_launches[low],
+                                        heads_launches[low]))
         n = (liar_launches[low] + (fmin_launches if low == "f32" else 0)
              + dev_launches)
         k = kernels[low]
+        if low == "f32":
+            k["max_abs_err"] = max(k["max_abs_err"], heads_err)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": n,
                      "graph_recorded": dev_recorded,

@@ -17,13 +17,15 @@ and ``PoolTrials`` (``parallel/``) evaluates trials in threads or forked
 children.  Beside TPE (factorized or ``multivariate``, ``suggest_quantile``,
 ``startup="qmc"``) sit ``qmc`` (Sobol/Halton suggest) and the space tools:
 ``criteria``, ``rdists``, ``pyll`` (``pyll_shim``), ``graphviz`` and
-``plotting``.  Entry points run on CUDA unless the caller passes
-``device="cpu"``.
+``plotting``.  The other suggest heads are ``anneal``, ``mix``, ``atpe`` and,
+under ``backends``, the GP and ES heads with the backend registry: ``fmin``
+takes ``algo="<name>"`` for any name ``backends.names()`` lists.  Entry
+points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from . import (  # noqa: F401
-    criteria, device, faults, fleet, graphviz, history, hp, obs, plotting,
-    qmc, rand, rdists, tpe)
+    anneal, atpe, backends, criteria, device, faults, fleet, graphviz,
+    history, hp, mix, obs, plotting, qmc, rand, rdists, tpe)
 from .base import (  # noqa: F401
     Ctrl,
     Domain,
@@ -64,6 +66,7 @@ from .parallel import PoolTrials  # noqa: F401
 from .scope import scope  # noqa: F401
 from . import pyll_shim as pyll  # noqa: F401
 from .space import Apply, CompiledSpace, compile_space  # noqa: F401
+from .utils import parameter_importance  # noqa: F401
 from .utils.early_stop import no_progress_loss  # noqa: F401
 
 # ``import hyperopt_tpu_torch.pyll`` and ``from hyperopt_tpu_torch.pyll
@@ -78,7 +81,8 @@ __all__ = [
     "fmin", "fmin_device", "fmin_fleet", "FMinIter",
     "fmin_pass_expr_memo_ctrl", "space_eval",
     "generate_trials_to_calculate", "partial",
-    "hp", "tpe", "rand", "qmc", "scope", "history", "device", "fleet", "obs",
+    "hp", "tpe", "rand", "qmc", "anneal", "mix", "atpe", "backends",
+    "parameter_importance", "scope", "history", "device", "fleet", "obs",
     "faults", "criteria", "rdists", "pyll", "graphviz", "plotting",
     "Trials", "trials_from_docs", "Domain", "Ctrl", "PoolTrials",
     "CompiledSpace", "compile_space", "no_progress_loss",

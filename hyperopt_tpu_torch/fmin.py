@@ -492,7 +492,9 @@ def fmin(fn, space, algo=None, max_evals=None,
          trials_save_file="", device=None, max_queue_len=1, mode=None,
          sync_stride=None, trace_dir=None, overlap_suggest=False,
          overlap_depth=None, evaluators=None, max_trial_retries=None):
-    """Minimize ``fn`` over ``space`` using ``algo`` (default TPE).
+    """Minimize ``fn`` over ``space`` using ``algo`` (default TPE): a
+    suggest callable, or a name the backend registry resolves
+    (``backends.names()``: ``"tpe"``, ``"anneal"``, ``"gp"``, ...).
 
     ``fn`` returns a float loss or a result dict with ``loss``/``status``;
     ``max_evals`` bounds the trials, ``timeout`` the wall-clock seconds;
@@ -559,9 +561,13 @@ def fmin(fn, space, algo=None, max_evals=None,
         raise ValueError("sync_stride only applies to mode='device'")
     dev = resolve_device(device)
     if algo is None:
-        from . import tpe
+        algo = "tpe"
+    if isinstance(algo, str):
+        # Names resolve through the backend registry; the callable form
+        # works as in the reference.
+        from .backends import contract as _backends
 
-        algo = tpe.suggest
+        algo = _backends.resolve(algo)
     if rstate is None:
         env_seed = os.environ.get("HYPEROPT_FMIN_SEED", "")
         rstate = np.random.default_rng(int(env_seed) if env_seed else None)

@@ -128,6 +128,6 @@ def suggest_halton(new_ids, domain, trials, seed):
     return suggest(new_ids, domain, trials, seed, engine="halton")
 
 
-#: The names the algorithm registry (the next slice's
-#: ``backends/contract.py``) resolves through.
+#: The names the backend registry (``backends/contract.py``) resolves
+#: through.
 BACKENDS = {"qmc": suggest, "sobol": suggest, "halton": suggest_halton}

@@ -28,3 +28,8 @@ def suggest_batch(new_ids, domain, trials, seed):
     dev = resolve_device(domain.cs.device)
     gen = make_generator(dev, int(seed) % (2 ** 32))
     return domain.cs.sample(len(new_ids), generator=gen, device=dev)
+
+
+#: The names the backend registry (``backends/contract.py``) resolves
+#: through.
+BACKENDS = {"rand": suggest, "random": suggest}

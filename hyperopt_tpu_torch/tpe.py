@@ -62,6 +62,7 @@ from __future__ import annotations
 import logging
 import math
 import threading
+from functools import partial
 from time import perf_counter
 from types import SimpleNamespace
 
@@ -1271,3 +1272,16 @@ suggest_quantile.materialize = suggest_materialize
 suggest_quantile.start_transfer = suggest_start_transfer
 suggest_quantile.handle_ready = suggest_handle_ready
 suggest_quantile.introspect = introspect
+
+
+#: The names the backend registry (``backends/contract.py``) resolves
+#: through.  The configured variants are keyword-only partials: ``FMinIter``
+#: and ``contract.halves_of`` bind their keywords onto the dispatch half,
+#: so they keep the pipelined loop.
+BACKENDS = {
+    "tpe": suggest,
+    "tpe_quantile": suggest_quantile,
+    "tpe_sobol": partial(suggest, startup="qmc"),
+    "tpe_mv": partial(suggest, split="quantile", multivariate=True,
+                      n_EI_candidates=128),
+}

@@ -1,9 +1,7 @@
-"""Loop utilities (progress reporting, early stopping) and the reference's
-trial-doc helpers.
+"""Loop utilities (progress reporting, early stopping), the reference's
+trial-doc helpers and :func:`parameter_importance`.
 
-Counterpart of ``hyperopt_tpu/utils/__init__.py`` without
-``parameter_importance``, which goes with ``atpe.py`` in the slice of the
-other suggest heads.
+Counterpart of ``hyperopt_tpu/utils/__init__.py``.
 """
 
 from __future__ import annotations
@@ -28,3 +26,18 @@ def get_most_recent_inds(obj):
     keep = np.ones(len(obj), dtype=bool)
     keep[:-1] = sorted_data["tid"][1:] != sorted_data["tid"][:-1]
     return order[keep]
+
+
+def parameter_importance(trials, space):
+    """Per-parameter importance of a finished experiment, ``{label:
+    score}``: the bias-adjusted between-group variance ratio (η²) of the
+    loss across value groups (quantile bins for numeric parameters), the
+    statistic ATPE's lockout arms use online
+    (:func:`hyperopt_tpu_torch.atpe.parameter_importance`).  The reference
+    has no such API."""
+    from ..atpe import parameter_importance as _imp
+    from ..space import compile_space
+
+    cs = compile_space(space)
+    imp = _imp(trials.history(cs), cs)
+    return {p.label: float(imp[p.pid]) for p in cs.params}

@@ -66,10 +66,16 @@ def test_imports_with_jax_blocked():
         "import hyperopt_tpu_torch.rdists, hyperopt_tpu_torch.pyll_shim\n"
         "import hyperopt_tpu_torch.graphviz, hyperopt_tpu_torch.plotting\n"
         "import hyperopt_tpu_torch.utils, hyperopt_tpu_torch.pyll\n"
+        "import hyperopt_tpu_torch.anneal, hyperopt_tpu_torch.mix\n"
+        "import hyperopt_tpu_torch.atpe, hyperopt_tpu_torch.backends\n"
+        "import hyperopt_tpu_torch.backends.contract\n"
+        "import hyperopt_tpu_torch.backends._codec\n"
+        "import hyperopt_tpu_torch.backends.gp, hyperopt_tpu_torch.backends.es\n"
         "sys.path.insert(0, 'tests_torch_cuda')\n"
         "import conftest, test_torch_cuda_device, test_torch_cuda_ei_scores\n"
         "import test_torch_cuda_fleet, test_torch_cuda_obs\n"
         "import test_torch_cuda_pipeline, test_torch_cuda_tpe_rest\n"
+        "import test_torch_cuda_backends\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hyperopt_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "assert 'matplotlib' not in sys.modules\n"
