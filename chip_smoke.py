@@ -141,7 +141,34 @@ Phases, each fatal on failure:
                batch of 8 in one call, card rows equal to CPU rows on the
                same noise; (e) ``run_conformance`` for every unique head on
                the card, and ``fmin(overlap_depth=2)`` with gp and es.
-12. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
+12. dispatch  the dispatch substrate at the same width: (a)
+               ``multihost.initialize()`` brings up a world-1 NCCL group
+               and registers its ``(dp, sp) = (1, 1)`` CUDA mesh; (b) 16
+               hosted trials after the 1,000-trial history through plain
+               ``tpe.suggest`` under the mesh land the rows of 16 under
+               ``dispatch.set_mode("local")`` bit for bit, with
+               ``dispatch.sharded`` 16 and K1 16 times each; host ms per
+               dispatch sharded against local, in turns; a warm sharded
+               dispatch and its copy under ``set_sync_debug_mode("error")``;
+               (c) K1, K2 and K3 on candidates ``[0, 5,000)`` and
+               ``[5,000, 10,000)`` (and in 4 slices) equal the full launch
+               bit for bit; (d) ``fmin_device(mesh=)``, 1,000 trials from
+               empty: the unmeshed run's trials, no eager step, one capture
+               with the all-gather inside, trials/s of both; ``n_runs=8``
+               over dp = 1 equal to the unmeshed runs and runs 0 and 7 to
+               their solo runs; (e) ``fmin_fleet(mesh=)`` over 8 lanes
+               equal to the unmeshed fleet; (f) ``multi_start_suggest``
+               with K = 8: 8 distinct in-bounds rows from one K1 launch over
+               31·8 columns, ms per call; (g) ``multihost.run_driver`` over
+               a ``FileTrials`` in a temporary directory with 2 worker
+               processes: 84 trials DONE (64 after startup, each a sharded
+               suggest with one K1 launch), no tid claimed twice, every
+               worker exits 0; (h) a device-mode run with a
+               ``TimeSeriesStore`` registered backfills windowed series,
+               the registry's OpenMetrics text round-trips through the
+               strict parser, the default SLOs evaluate.  The mesh is
+               unregistered and the process group destroyed at the end.
+13. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
                and every collected test passed.
 
 Prints the card's name and power limit first and again before the
@@ -277,6 +304,21 @@ HEADS_MORE = 16
 HEADS_ATPE = 64
 HEADS_TIMED = 10
 HEADS_K1_CANDIDATES = (128, 256, 512)
+# dispatch: trials after the history of each hosted run (b), timed
+# dispatches per turn (b), trials of the one-run device-mode runs (d), runs
+# and trials of the restarts and fleet runs (d, e), lanes of the fleet
+# (e), starts of the multi-start call (f), trials after startup and worker
+# processes of the driver run (g), trials of the backfilled run (h).
+DISPATCH_MORE = 16
+DISPATCH_TIMED = 10
+DISPATCH_RUN = 1000
+DISPATCH_RUNS = 8
+DISPATCH_RUNS_TRIALS = 256
+DISPATCH_LANES = 8
+DISPATCH_STARTS = 8
+DISPATCH_DRIVER = 64
+DISPATCH_WORKERS = 2
+DISPATCH_OBS_RUN = 256
 # Kernel symbol of each lowering, as the profiler names it.
 KERNEL_SYMBOLS = {"f32": "ei_scores_kernel<false>",
                   "bf16": "ei_scores_kernel<true>",
@@ -2766,6 +2808,355 @@ def phase_heads(dev):
     return tally.rows(), err_max
 
 
+def dispatch_ms(domain, trials, n=DISPATCH_TIMED):
+    """Host ms of ``tpe.suggest_dispatch`` (the enqueue, with the card idle
+    when it starts) and card-inclusive ms through ``suggest_materialize``,
+    medians over ``n`` one-proposal dispatches on the warm kernel."""
+    enq, total = [], []
+    for s in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = tpe.suggest_dispatch(trials.new_trial_ids(1), domain,
+                                      trials, 100 + s, n_EI_candidates=N_CAND)
+        t1 = time.perf_counter()
+        tpe.suggest_materialize(handle)
+        t2 = time.perf_counter()
+        enq.append((t1 - t0) * 1e3)
+        total.append((t2 - t0) * 1e3)
+    return float(np.median(enq)), float(np.median(total))
+
+
+def phase_dispatch(dev):
+    """The dispatch substrate at full width, checks (a) to (h).  Returns
+    ``{lowering: (eager launches, launches recorded into graphs, replays
+    of graphs that hold the kernel)}`` over its runs."""
+    from hyperopt_tpu_torch import dispatch
+    from hyperopt_tpu_torch.obs import export, slo, timeseries
+    from hyperopt_tpu_torch.parallel import FileTrials, multihost
+
+    t_phase = time.perf_counter()
+    space = flagship_space()
+    cs = compile_space(space)
+    algo = partial(tpe.suggest, n_EI_candidates=N_CAND)
+    history0 = synthetic_trials(cs, N_HISTORY, 1, dev)
+    tally = Tally()
+    counted = tally.counted
+    reg = metrics.registry()
+
+    def n_sharded():
+        return reg.snapshot()["counters"].get("dispatch.sharded", 0.0)
+
+    def copy_history():
+        return base.trials_from_docs(copy.deepcopy(list(history0)))
+
+    # (a) a world-1 NCCL group and its (1, 1) CUDA mesh, registered.
+    import torch.distributed as dist
+
+    mesh = multihost.initialize()
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda" \
+            or tuple(mesh.shape) != (1, 1) \
+            or dispatch.active_mesh() is not mesh:
+        fail(f"dispatch (a): backend {dist.get_backend()}, mesh "
+             f"{mesh.device_type} {tuple(mesh.shape)}, registered "
+             f"{dispatch.active_mesh() is mesh}")
+    print(f"dispatch (a): multihost.initialize(): {dist.get_backend()} "
+          f"world of {dist.get_world_size()}, mesh {mesh.mesh_dim_names} "
+          f"{tuple(mesh.shape)} on {mesh.device_type}, registered")
+    try:
+        # (b) 16 hosted trials through plain tpe.suggest under the mesh,
+        # against 16 under set_mode("local").
+        n_total = N_HISTORY + DISPATCH_MORE
+        runs = {}
+        for name in ("sharded", "local"):
+            prev = dispatch.set_mode("local" if name == "local" else "auto")
+            try:
+                t = copy_history()
+                s0 = n_sharded()
+                counted("f32", lambda: ho.fmin(
+                    objective, space, algo=algo, max_evals=n_total,
+                    trials=t, rstate=np.random.default_rng(7), device=dev,
+                    show_progressbar=False))
+                runs[name] = (landed(t, N_HISTORY), n_sharded() - s0,
+                              dict(ei_mod.ei_scores.launches_by))
+            finally:
+                dispatch.set_mode(prev)
+        (rows_s, n_s, k_s), (rows_l, n_l, k_l) = runs["sharded"], \
+            runs["local"]
+        if n_s != DISPATCH_MORE or n_l != 0:
+            fail(f"dispatch (b): dispatch.sharded counted {n_s} and {n_l}, "
+                 f"wanted {DISPATCH_MORE} and 0")
+        if rows_s != rows_l:
+            fail("dispatch (b): the sharded hosted run landed other rows "
+                 "than the local one")
+        if k_s != k_l or k_s["f32"] != DISPATCH_MORE:
+            fail(f"dispatch (b): K1 launches {k_s} sharded, {k_l} local")
+        domain = base.Domain(objective, space)
+        domain.cs.device = dev
+        t = copy_history()
+        ms = {"sharded": [], "local": []}
+        for turn in range(2):
+            for name in ("sharded", "local"):
+                prev = dispatch.set_mode("local" if name == "local"
+                                         else "auto")
+                try:
+                    ms[name].append(dispatch_ms(domain, t))
+                finally:
+                    dispatch.set_mode(prev)
+        enq = {k: float(np.median([a for a, _ in v])) for k, v in ms.items()}
+        tot = {k: float(np.median([b for _, b in v])) for k, v in ms.items()}
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handle = tpe.suggest_dispatch(t.new_trial_ids(1), domain, t, 3,
+                                          n_EI_candidates=N_CAND)
+            tpe.suggest_start_transfer(handle)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        tpe.suggest_materialize(handle)
+        print(f"dispatch (b): {DISPATCH_MORE} hosted trials under the mesh "
+              f"land the local run's rows bit for bit; dispatch.sharded="
+              f"{n_s}; K1 launches {k_s['f32']} (sharded) and {k_l['f32']} "
+              f"(local); host ms per dispatch (enqueue) sharded="
+              f"{enq['sharded']:.3f} local={enq['local']:.3f} (collective "
+              f"{enq['sharded'] - enq['local']:+.3f}); ms through "
+              f"materialize sharded={tot['sharded']:.3f} "
+              f"local={tot['local']:.3f}; a warm sharded dispatch and its "
+              f"start_transfer ran under set_sync_debug_mode('error')")
+
+        # (c) each kernel's scores do not depend on how the candidates are
+        # split: halves and quarters equal the full launch bit for bit.
+        rng = np.random.default_rng(3)
+        below = random_mixture(rng, 31, 26, 25, dev)
+        above = random_mixture(rng, 31, 1025, 1022, dev)
+        z = torch.as_tensor(rng.normal(0, 3, (31, N_CAND)).astype(
+            np.float32), device=dev)
+        for low, (_, _, _, kw, _) in KERNELS.items():
+            full = ei_mod.ei_scores(z, *below, *above, **kw)
+            for shards in (2, 4):
+                w = N_CAND // shards
+                parts = torch.cat([ei_mod.ei_scores(
+                    z[:, i * w:(i + 1) * w].contiguous(), *below, *above,
+                    **kw) for i in range(shards)], dim=1)
+                if not torch.equal(parts, full):
+                    diff = (parts - full).abs().max().item()
+                    fail(f"dispatch (c): {low} on {shards} slices differs "
+                         f"from the full launch by {diff:.3g}")
+            print(f"dispatch (c): {low}: 31x{N_CAND} scored whole, in 2 "
+                  f"and in 4 candidate slices: bit-identical")
+
+        # (d) fmin_device(mesh=): one run of 1,000 trials from empty, the
+        # NCCL all-gather inside the captured graph; then 8 runs over dp.
+        obj = make_objective_torch()
+        timed = {}
+        for name, m in (("mesh", mesh), ("none", None)):
+            t0 = time.perf_counter()
+            _, info = counted("f32", lambda: ho.fmin_device(
+                obj, space, DISPATCH_RUN, seed=11, n_EI_candidates=N_CAND,
+                mesh=m, device=dev))
+            timed[name] = (info, time.perf_counter() - t0,
+                           device.eager_steps, device.captures)
+        (im, sm, eager, caps), (inone, snone, _, _) = timed["mesh"], \
+            timed["none"]
+        if eager != 0 or caps != 1:
+            fail(f"dispatch (d): fmin_device(mesh=) ran {eager} eager steps "
+                 f"and {caps} captures, wanted 0 and 1")
+        if not all(np.array_equal(im[k], inone[k])
+                   for k in ("vals", "losses", "active")):
+            fail("dispatch (d): fmin_device(mesh=) landed other trials than "
+                 "without the mesh")
+        warm = {}
+        for name, m in (("mesh", mesh), ("none", None)):
+            t0 = time.perf_counter()
+            counted("f32", lambda: ho.fmin_device(
+                obj, space, DISPATCH_RUN, seed=12, n_EI_candidates=N_CAND,
+                mesh=m, device=dev))
+            warm[name] = DISPATCH_RUN / (time.perf_counter() - t0)
+        _, multi = counted("f32", lambda: ho.fmin_device(
+            obj, space, DISPATCH_RUNS_TRIALS, seed=20,
+            n_EI_candidates=N_CAND, n_runs=DISPATCH_RUNS, mesh=mesh,
+            device=dev))
+        _, plain = counted("f32", lambda: ho.fmin_device(
+            obj, space, DISPATCH_RUNS_TRIALS, seed=20,
+            n_EI_candidates=N_CAND, n_runs=DISPATCH_RUNS, device=dev))
+        for j in (0, DISPATCH_RUNS - 1):
+            _, solo = counted("f32", lambda: ho.fmin_device(
+                obj, space, DISPATCH_RUNS_TRIALS, seed=20 + j,
+                n_EI_candidates=N_CAND, device=dev))
+            if not np.array_equal(multi["vals"][j], solo["vals"]):
+                fail(f"dispatch (d): run {j} of fmin_device(n_runs="
+                     f"{DISPATCH_RUNS}, mesh=) differs from its solo run")
+        if not all(np.array_equal(multi[k], plain[k])
+                   for k in ("vals", "losses")):
+            fail("dispatch (d): fmin_device(n_runs=, mesh=) differs from "
+                 "the run without the mesh")
+        print(f"dispatch (d): fmin_device(mesh=) {DISPATCH_RUN} trials "
+              f"from empty: the trials of the run without the mesh, "
+              f"eager_steps=0, 1 capture (the all-gather in the graph); "
+              f"cold trials/s mesh={DISPATCH_RUN / sm:.1f} "
+              f"none={DISPATCH_RUN / snone:.1f}; warm trials/s "
+              f"mesh={warm['mesh']:.1f} none={warm['none']:.1f}; "
+              f"n_runs={DISPATCH_RUNS} over dp=1 ({DISPATCH_RUNS_TRIALS} "
+              f"trials): every run equals the unmeshed runs, runs 0 and "
+              f"{DISPATCH_RUNS - 1} their solo runs")
+
+        # (e) fmin_fleet(mesh=), 8 lanes, against the unmeshed fleet.
+        fl = {name: counted("f32", lambda: ho.fleet.fmin_fleet(
+            obj, space, DISPATCH_LANES, DISPATCH_RUNS_TRIALS, seed=30,
+            n_EI_candidates=N_CAND, mesh=m, device=dev))
+            for name, m in (("mesh", mesh), ("none", None))}
+        if not all(lane_infos_equal(a, b)
+                   for a, b in zip(fl["mesh"], fl["none"])):
+            fail("dispatch (e): fmin_fleet(mesh=) lanes differ from the "
+                 "unmeshed fleet's")
+        print(f"dispatch (e): fmin_fleet(mesh=) {DISPATCH_LANES} lanes x "
+              f"{DISPATCH_RUNS_TRIALS} trials equal the unmeshed fleet's")
+
+        # (f) multi-start: K = 8 proposals from one step, one K1 launch
+        # over 31·8 columns.
+        shapes = []
+        real = tpe.ei_scores
+
+        def spy(z, *a, **k):
+            shapes.append(tuple(z.shape))
+            return real(z, *a, **k)
+
+        t = copy_history()
+        domain = base.Domain(objective, space)
+        domain.cs.device = dev
+        ids = t.new_trial_ids(DISPATCH_STARTS)
+        tpe.ei_scores = spy
+        try:
+            docs = counted("f32", lambda: dispatch.multi_start_suggest(
+                ids, domain, t, 41, mesh=mesh, n_EI_candidates=N_CAND))
+        finally:
+            tpe.ei_scores = real
+        launched = ei_mod.ei_scores.launches_by["f32"]
+        rows = np.stack([[d["misc"]["vals"][p.label][0]
+                          if d["misc"]["vals"][p.label] else 0.0
+                          for p in cs.params] for d in docs])
+        act = cs.active_mask_host(rows)
+        bad = [[lb for lb in in_bounds(cs, r) if a[cs.by_label[lb].pid]]
+               for r, a in zip(rows, act)]
+        if launched != 1 or shapes != [(31 * DISPATCH_STARTS, N_CAND)] \
+                or any(bad) or len({r.tobytes() for r in rows}) \
+                != DISPATCH_STARTS:
+            fail(f"dispatch (f): {launched} K1 launches over {shapes}, "
+                 f"out of bounds {bad}, "
+                 f"{len({r.tobytes() for r in rows})} distinct rows")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        card = []
+        for s in range(5):
+            start.record()
+            dispatch.multi_start_suggest(ids, domain, t, 50 + s, mesh=mesh,
+                                         n_EI_candidates=N_CAND)
+            end.record()
+            end.synchronize()
+            card.append(start.elapsed_time(end))
+        print(f"dispatch (f): multi_start_suggest K={DISPATCH_STARTS}: "
+              f"{DISPATCH_STARTS} distinct in-bounds rows, one K1 launch "
+              f"over {shapes[0][0]}x{shapes[0][1]}; ms per call (CUDA "
+              f"events around the call) {float(np.median(card)):.3f}")
+
+        # (g) run_driver over a FileTrials in a temp dir, two worker
+        # processes.  The workers unpickle the objective by reference, so
+        # it comes from this file imported as a module (this run's
+        # ``__main__`` does not exist in theirs).
+        import chip_smoke
+
+        root = tempfile.mkdtemp(prefix="chip_smoke_store_")
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        workers = [subprocess.Popen(
+            [sys.executable, "-m", "hyperopt_tpu_torch.parallel.filestore",
+             "--root", root, "--exp-key", "mh", "--reserve-timeout", "20",
+             "--poll-interval", "0.01"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for _ in range(DISPATCH_WORKERS)]
+        n_drive = tpe._default_n_startup_jobs + DISPATCH_DRIVER
+        try:
+            s0 = n_sharded()
+            t0 = time.perf_counter()
+            counted("f32", lambda: multihost.run_driver(
+                chip_smoke.objective, space, store_root=root, exp_key="mh",
+                max_evals=n_drive, mesh=mesh, n_EI_candidates=N_CAND,
+                rstate=np.random.default_rng(5), show_progressbar=False,
+                device=dev))
+            drive_s = time.perf_counter() - t0
+            k1 = ei_mod.ei_scores.launches_by["f32"]
+            n_s = n_sharded() - s0
+        finally:
+            outs = []
+            for p in workers:
+                try:
+                    outs.append(p.communicate(timeout=120))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    outs.append(p.communicate())
+        for p, (_, err) in zip(workers, outs):
+            if p.returncode != 0:
+                fail(f"dispatch (g): a worker exited {p.returncode}:\n"
+                     f"{err[-2000:]}")
+        ft = FileTrials(root, exp_key="mh")
+        tids = [d["tid"] for d in ft]
+        owners = {d["owner"] for d in ft}
+        for d in ft:
+            with open(ft._claim_path(d["tid"])) as f:
+                if f.read() != d["owner"]:
+                    fail(f"dispatch (g): trial {d['tid']} claimed twice")
+        n_s = int(n_s)
+        if len(ft) != n_drive or len(set(tids)) != n_drive or any(
+                d["state"] != base.JOB_STATE_DONE for d in ft):
+            fail(f"dispatch (g): {len(ft)} trials, {len(set(tids))} tids, "
+                 f"states {sorted({d['state'] for d in ft})}")
+        if k1 != DISPATCH_DRIVER or n_s != DISPATCH_DRIVER:
+            fail(f"dispatch (g): {k1} K1 launches and {n_s} sharded "
+                 f"dispatches for {DISPATCH_DRIVER} TPE trials")
+        shutil.rmtree(root, ignore_errors=True)
+        print(f"dispatch (g): run_driver over a FileTrials with "
+              f"{DISPATCH_WORKERS} worker processes: {n_drive} trials DONE "
+              f"({DISPATCH_DRIVER} after startup, {n_s} sharded suggests, "
+              f"K1 {k1} times on the card), {len(owners)} owners, no tid "
+              f"claimed twice, {drive_s:.1f} s")
+
+        # (h) the obs tier: a device-mode run backfills a time-series
+        # store; OpenMetrics round-trips; the default SLOs evaluate.
+        ts = timeseries.TimeSeriesStore(reg)
+        devtel.set_backfill_store(ts)
+        try:
+            t = ho.Trials()
+            counted("f32", lambda: device_fmin(
+                make_objective_torch(), space, algo, t, DISPATCH_OBS_RUN,
+                DISPATCH_OBS_RUN // 4, dev, 9))
+        finally:
+            devtel.set_backfill_store(None)
+        names = set(ts.series_names())
+        need = {f"device.segments.solo.{DISPATCH_OBS_RUN // 4}",
+                "device.telemetry.best_loss", "device.telemetry.segment_ms"}
+        win = ts.window_state("device.telemetry.segment_ms", 3600.0)
+        if ts.n_scrapes != 4 or not need <= names or win["count"] < 4:
+            fail(f"dispatch (h): {ts.n_scrapes} scrapes, missing "
+                 f"{sorted(need - names)}, window {win}")
+        text = export.render_openmetrics(reg.snapshot(states=True))
+        fams = export.parse_openmetrics(text)
+        mon = slo.SloMonitor(slo.default_slos(), ts)
+        status = mon.evaluate()
+        print(f"dispatch (h): {ts.n_scrapes} back-dated scrapes, "
+              f"{len(names)} series ({ts.nbytes()} bytes est.); "
+              f"OpenMetrics of the registry: {len(fams)} families, "
+              f"{len(text)} bytes, round-trips; default SLOs: "
+              f"{[(s['name'], s['firing']) for s in status]}")
+    finally:
+        dispatch.clear_default_mesh()
+        dist.destroy_process_group()
+    print(f"dispatch: EI wrapper over the phase: eager launches "
+          f"{tally.launches}, recorded into graphs {tally.recorded}, graph "
+          f"replays {tally.replayed}; {time.perf_counter() - t_phase:.1f} s")
+    return tally.rows()
+
+
 def phase_card_tests():
     """``python -m pytest tests_torch_cuda`` in a subprocess: it must exit
     0 with every collected test passed."""
@@ -2815,6 +3206,7 @@ def main():
     pipeline_launches = phase_pipeline(dev)
     rest_launches = phase_tpe_rest(dev, hosted)
     heads_launches, heads_err = phase_heads(dev)
+    dispatch_launches = phase_dispatch(dev)
     phase_card_tests()
     print(f"total seconds {time.perf_counter() - t0:.1f}")
     rows = []
@@ -2823,8 +3215,9 @@ def main():
         # its run: the fmin phase (f32), this lowering's liar_batch run,
         # device_mode's, the fleet's, obs's and tpe_rest's eager warm-up
         # steps, the cohort dispatches, obs's hosted runs, the pipeline
-        # phase's runs, tpe_rest's hosted runs and the heads phase's
-        # hosted runs (K1 only).  A capture records
+        # phase's runs, tpe_rest's hosted runs, the heads phase's
+        # hosted runs and the dispatch phase's runs (K1 only).  A capture
+        # records
         # the launch into its graph without running it (graph_recorded);
         # graph_replays counts replays of graphs that hold the kernel, one
         # kernel run each (for all lanes) by the profiler's count in
@@ -2837,7 +3230,8 @@ def main():
                                         obs_launches[low],
                                         pipeline_launches[low],
                                         rest_launches[low],
-                                        heads_launches[low]))
+                                        heads_launches[low],
+                                        dispatch_launches[low]))
         n = (liar_launches[low] + (fmin_launches if low == "f32" else 0)
              + dev_launches)
         k = kernels[low]

@@ -19,13 +19,18 @@ children.  Beside TPE (factorized or ``multivariate``, ``suggest_quantile``,
 ``criteria``, ``rdists``, ``pyll`` (``pyll_shim``), ``graphviz`` and
 ``plotting``.  The other suggest heads are ``anneal``, ``mix``, ``atpe`` and,
 under ``backends``, the GP and ES heads with the backend registry: ``fmin``
-takes ``algo="<name>"`` for any name ``backends.names()`` lists.  Entry
+takes ``algo="<name>"`` for any name ``backends.names()`` lists.
+``dispatch`` is the one substrate of every suggest path: with a
+``torch.distributed`` mesh registered (``parallel.multihost.initialize``)
+the TPE step splits its candidates over the mesh's ranks;
+``parallel.FileTrials`` and ``FileWorker`` share trials through a
+directory with worker processes.  Entry
 points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from . import (  # noqa: F401
-    anneal, atpe, backends, criteria, device, faults, fleet, graphviz,
-    history, hp, mix, obs, plotting, qmc, rand, rdists, tpe)
+    anneal, atpe, backends, criteria, device, dispatch, faults, fleet,
+    graphviz, history, hp, mix, obs, plotting, qmc, rand, rdists, tpe)
 from .base import (  # noqa: F401
     Ctrl,
     Domain,
@@ -62,7 +67,7 @@ from .fmin import (  # noqa: F401
     partial,
     space_eval,
 )
-from .parallel import PoolTrials  # noqa: F401
+from .parallel import FileTrials, PoolTrials  # noqa: F401
 from .scope import scope  # noqa: F401
 from . import pyll_shim as pyll  # noqa: F401
 from .space import Apply, CompiledSpace, compile_space  # noqa: F401
@@ -84,7 +89,8 @@ __all__ = [
     "hp", "tpe", "rand", "qmc", "anneal", "mix", "atpe", "backends",
     "parameter_importance", "scope", "history", "device", "fleet", "obs",
     "faults", "criteria", "rdists", "pyll", "graphviz", "plotting",
-    "Trials", "trials_from_docs", "Domain", "Ctrl", "PoolTrials",
+    "dispatch", "Trials", "trials_from_docs", "Domain", "Ctrl", "PoolTrials",
+    "FileTrials",
     "CompiledSpace", "compile_space", "no_progress_loss",
     "STATUS_NEW", "STATUS_RUNNING", "STATUS_SUSPENDED", "STATUS_OK",
     "STATUS_FAIL", "STATUS_STRINGS",

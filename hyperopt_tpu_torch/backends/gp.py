@@ -288,8 +288,9 @@ def introspect(domain, trials, seed=0, n_candidates=64,
     refit on the host in numpy (float64), with log marginal likelihood and
     the candidate sweep's EI statistics.
 
-    Touches no program cache and no accelerator: at most ``max_n`` rows,
-    candidates drawn on the CPU.  ``ei_rel`` is the best candidate's EI in
+    Touches no program cache and no accelerator: at most ``max(16,
+    max_n)`` rows (the rows :func:`suggest_dispatch` fits), candidates
+    drawn on the CPU.  ``ei_rel`` is the best candidate's EI in
     raw loss units over the observed loss scale (~0: a flat acquisition
     surface, EI collapse)."""
     cs = domain.cs
@@ -303,6 +304,8 @@ def introspect(domain, trials, seed=0, n_candidates=64,
     vals = np.asarray(h["vals"], np.float64)[ok]
     act = np.asarray(h["active"], bool)[ok]
     loss = np.asarray(h["loss"], np.float64)[ok]
+    # At least 16 rows, as suggest_dispatch fits.
+    max_n = max(16, int(max_n))
     if n_ok > max_n:
         sel = np.argsort(loss)[:max_n]
         vals, act, loss = vals[sel], act[sel], loss[sel]

@@ -86,8 +86,14 @@ the first two.  ``ei_scores.launches`` counts the EI kernel's eager
 launches (the warm-up steps); a capture adds to ``ei_scores.recorded_by``
 instead, and replays pass through neither.
 
-Not in this slice: ``mesh=`` (the dispatch slice, ``ROADMAP.md``
-Queue 1).
+**Meshes** (``dispatch.py``).  ``fmin_device(mesh=)`` with one run
+captures the step with :class:`dispatch.ShardedTpeKernel`: each rank of
+``mesh["sp"]`` scores its slice of the candidates and the argmax reduces
+in a collective inside the graph (NCCL on the card; gloo runs it eagerly
+on the CPU).  With ``n_runs > 1`` the runs split over ``mesh["dp"]``:
+each rank runs its share as the lanes of its own graph, and the landed
+rows are all-gathered so that every rank returns all runs.  Every rank
+of the mesh calls with the same arguments.
 """
 
 from __future__ import annotations
@@ -117,7 +123,6 @@ from .tpe import (
     _default_n_startup_jobs,
     _default_prior_weight,
     _insert_row,
-    get_kernel,
     stack_noise,
     wait_prewarm,
 )
@@ -137,8 +142,6 @@ _POLL_EVERY = 8
 _RUN_AHEAD = 4 * _POLL_EVERY
 # "No patience": a count that is never reached.
 _NO_PATIENCE = 1 << 62
-_NOT_PORTED = ("{what} is not ported yet: it belongs to the dispatch "
-               "slice (dispatch.py / parallel, ROADMAP.md Queue 1)")
 _CONTRACT = (
     "device mode captures the objective inside a CUDA graph of the TPE "
     "step: it takes a dict {label: 0-d float32 tensor} (and the activity "
@@ -536,10 +539,14 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
                  gamma, prior_weight, linear_forgetting, split, cat_prior,
                  ei_impl, ei_precision, ei_topm, n_lanes=1, telemetry=False,
                  multivariate=False, comp_sampler="icdf", split_impl="topk",
-                 fused_step=True):
+                 fused_step=True, mesh=None, strict=True):
     """The cached segment for this objective, bucket, tuning (the
-    lowerings included), lane count and telemetry switch, built (and
-    captured) on a miss."""
+    lowerings included), lane count, telemetry switch and mesh, built (and
+    captured) on a miss.  With a mesh the step's kernel is the sharded one
+    (``dispatch.get_kernel``; ``strict=False`` falls back to the local
+    kernel when ``mesh["sp"]`` does not divide the candidates)."""
+    from . import dispatch
+
     n_cap = _bucket(max_evals)
     dev = torch.device(device)
     # id(fn) is the only safe key for the objective: closures with the same
@@ -549,7 +556,8 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
            float(prior_weight), int(linear_forgetting),
            int(n_EI_candidates), split, cat_prior, ei_impl, ei_precision,
            int(ei_topm), int(n_lanes), bool(telemetry), bool(multivariate),
-           comp_sampler, split_impl, bool(fused_step))
+           comp_sampler, split_impl, bool(fused_step),
+           None if mesh is None else dispatch._mesh_key(mesh))
     with _CACHE_LOCK:
         cache = cs.__dict__.setdefault("_device_runs", OrderedDict())
         hit = cache.get(key)
@@ -560,10 +568,11 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
         _bump(run_cache_misses=1)
         EVENTS.emit("compile", name="fmin_device_segment", n_cap=n_cap,
                     n_lanes=int(n_lanes), telemetry=bool(telemetry))
-        kern = get_kernel(cs, n_cap, int(n_EI_candidates),
-                          int(linear_forgetting), split, cat_prior, dev,
-                          ei_impl, ei_precision, int(ei_topm), multivariate,
-                          comp_sampler, split_impl, fused_step)
+        kern = dispatch.get_kernel(cs, n_cap, int(n_EI_candidates),
+                                   int(linear_forgetting), split, cat_prior,
+                                   dev, ei_impl, ei_precision, int(ei_topm),
+                                   multivariate, comp_sampler, split_impl,
+                                   fused_step, mesh=mesh, strict=strict)
         seg = _build_segment(cs, kern, _wrap_objective(fn, cs),
                              n_startup_jobs, gamma, prior_weight, n_lanes,
                              telemetry)
@@ -624,17 +633,47 @@ def fmin_device(fn, space, max_evals, seed=0,
     does not compose with ``n_runs > 1``.
 
     ``multivariate``, ``comp_sampler``, ``split_impl`` and ``fused_step``
-    are ``tpe.suggest``'s.  ``mesh=`` raises ``NotImplementedError`` (the
-    dispatch slice).  ``device`` defaults to CUDA."""
-    if mesh is not None:
-        raise NotImplementedError(
-            _NOT_PORTED.format(what="fmin_device(mesh=)"))
+    are ``tpe.suggest``'s.  ``device`` defaults to CUDA.
+
+    ``mesh`` (a ``dispatch`` mesh; every rank calls with the same
+    arguments): one run shards its candidates over ``mesh["sp"]``, which
+    must divide ``n_EI_candidates``; ``n_runs > 1`` splits the runs over
+    ``mesh["dp"]``, which must divide ``n_runs``, and every rank returns
+    all runs."""
     n_runs = int(n_runs)
     if n_runs < 1:
         raise ValueError(f"n_runs must be >= 1, got {n_runs}")
     if init is not None and n_runs > 1:
         raise ValueError("init= resumes one run: it does not compose with "
                          "n_runs > 1")
+    from . import dispatch
+
+    n_dp, r_dp = 1, 0
+    if mesh is not None:
+        dispatch._check_axes(mesh)
+        if n_runs > 1:
+            n_dp = dispatch.axis_size(mesh, dispatch.START_AXIS)
+            r_dp = dispatch.axis_rank(mesh, dispatch.START_AXIS)
+            if n_runs % n_dp:
+                raise ValueError(
+                    f"n_runs={n_runs} not divisible by the {n_dp}-way "
+                    f"'{dispatch.START_AXIS}' mesh axis")
+            if n_dp == 1:
+                logger.warning(
+                    "fmin_device: mesh has %s=1, so all %d restarts run on "
+                    "one device; build dispatch.default_mesh(n_starts=%d) "
+                    "to distribute them", dispatch.START_AXIS, n_runs,
+                    n_runs)
+        else:
+            n_sp = dispatch.axis_size(mesh, dispatch.CAND_AXIS)
+            if int(n_EI_candidates) % n_sp:
+                fixed = -(-int(n_EI_candidates) // n_sp) * n_sp
+                raise ValueError(
+                    f"fmin_device: n_EI_candidates={n_EI_candidates} is not "
+                    f"divisible by the {n_sp}-way '{dispatch.CAND_AXIS}' "
+                    f"mesh axis; pass n_EI_candidates={fixed} (next "
+                    f"multiple) or a mesh whose '{dispatch.CAND_AXIS}' axis "
+                    f"divides it")
     cs = space if isinstance(space, CompiledSpace) else compile_space(space)
     dev = resolve_device(device)
     max_evals = int(max_evals)
@@ -666,21 +705,29 @@ def fmin_device(fn, space, max_evals, seed=0,
         raise ValueError(f"patience must be >= 1, got {patience}")
     # The telemetry switch keys the graph, so fmin_device shares the graphs
     # of fmin(mode="device") and fmin_fleet; it reads no slab itself.
+    # This rank's runs: all of them, or its share along dp.
+    n_local = n_runs // n_dp
     seg = _segment_for(fn, cs, max_evals, dev, n_startup_jobs,
                        n_EI_candidates, gamma, prior_weight,
                        linear_forgetting, split, cat_prior, ei_impl,
-                       ei_precision, ei_topm, n_lanes=n_runs,
+                       ei_precision, ei_topm, n_lanes=n_local,
                        telemetry=_devtel.enabled(), multivariate=multivariate,
                        comp_sampler=comp_sampler, split_impl=split_impl,
-                       fused_step=fused_step)
+                       fused_step=fused_step,
+                       mesh=mesh if n_runs == 1 else None)
     ok = np.isfinite(pl)
-    rstates = [np.random.default_rng(int(seed) + j) for j in range(n_runs)]
+    first = r_dp * n_local
+    rstates = [np.random.default_rng(int(seed) + first + j)
+               for j in range(n_local)]
     with seg.lock:
         seg.fresh = False
         seg.load(pv, pa, np.where(ok, pl, np.inf), ok, pl, limit=max_evals,
                  patience=patience, min_improvement=min_improvement)
         seg.run(_lane_seeds(rstates, max_evals - n_prev))
         vals, active, losses, n_done = seg.fetch(0, max_evals)
+    if n_dp > 1:
+        vals, active, losses, n_done = dispatch.gather_lanes(
+            mesh, [vals, active, losses, n_done])
     # NaN-safe best: a non-finite loss loses to any finite one.
     order = np.where(np.isnan(losses), np.inf, losses)
     bi = tuple(int(k) for k in
@@ -726,7 +773,7 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
                 split="sqrt", cat_prior="sqrt", ei_impl="vpu",
                 ei_precision="f32", ei_topm=0, device=None,
                 multivariate=False, comp_sampler="icdf", split_impl="topk",
-                fused_step=True):
+                fused_step=True, mesh=None):
     """Run TPE on the device in segments of ``sync_stride`` trials, landing
     each segment's trials in ``trials`` (the engine of
     ``fmin(mode="device")``); returns ``trials``.
@@ -741,8 +788,15 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
 
     With telemetry armed (``obs/devtel.py``), each segment's slab rides
     its fetch and is backfilled at the boundary, and the run ends with a
-    health verdict under ``device:<exp_key or "solo">``."""
+    health verdict under ``device:<exp_key or "solo">``.
+
+    ``mesh`` (or the mesh ``dispatch.active_mesh()`` resolves) shards the
+    step's candidates as ``fmin_device(mesh=)`` does; a candidate count
+    its ``sp`` axis does not divide runs the local kernel."""
+    from . import dispatch
+
     t_start = time.time()
+    mesh = dispatch.active_mesh(mesh)
     cs = space if isinstance(space, CompiledSpace) else compile_space(space)
     dev = resolve_device(device)
     max_evals = int(max_evals)
@@ -764,7 +818,8 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
                        linear_forgetting, split, cat_prior, ei_impl,
                        ei_precision, ei_topm, telemetry=telemetry,
                        multivariate=multivariate, comp_sampler=comp_sampler,
-                       split_impl=split_impl, fused_step=fused_step)
+                       split_impl=split_impl, fused_step=fused_step,
+                       mesh=mesh, strict=False)
     reg = _metrics.registry()
     exp_key = getattr(trials, "exp_key", None)
     stride_label = "inf" if sync_stride is None else str(sync_stride)

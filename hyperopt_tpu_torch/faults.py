@@ -7,10 +7,11 @@ a schedule is armed for that point the call raises
 returns after one module-global boolean check.
 
 The port instruments ``objective.call`` (the top of ``Domain.evaluate``),
-``pipeline.dispatch`` (before each dispatch of the pipelined loop) and
-``flight.dump`` (inside a flight-recorder dump); :data:`FAULT_POINTS`
-keeps the JAX package's whole catalog, whose other points belong to
-slices not ported yet.
+``pipeline.dispatch`` (before each dispatch of the pipelined loop),
+``flight.dump`` (inside a flight-recorder dump), and ``store.write`` and
+``worker.evaluate`` (the file store, ``parallel/filestore.py``);
+:data:`FAULT_POINTS` keeps the JAX package's whole catalog, whose other
+points belong to slices not ported yet.
 
 Configuration::
 
@@ -31,7 +32,8 @@ calls never perturb another's schedule and a seed replays the same faults
 as the JAX package does.  A ``PoolTrials`` child is forked and inherits
 the armed schedules in memory (each child its own copy of the tallies).
 The JAX package also arms schedules from its environment, for its
-separately launched file and network workers; the port has none yet.
+separately launched file and network workers; the port's file worker
+takes the spec as an argument (``FileWorker(faults=)``, ``--faults``).
 
 Every injection increments ``faults.injected`` and
 ``faults.injected.<point>`` in :mod:`~hyperopt_tpu_torch.obs.metrics` and

@@ -36,8 +36,11 @@ slab with a lane axis (``obs/devtel.py``): each lane's info gets its slab
 reduced over the run, equal bit for bit to its solo run's.
 
 Both halves take the TPE step's every keyword, ``multivariate`` and the
-sampler/split/fit lowerings included.  Not in this slice: ``mesh=`` (the
-dispatch slice) and the service's cohort gate (the service slice).
+sampler/split/fit lowerings included.  Meshes (``dispatch.py``): a cohort
+acquires its kernel through ``dispatch.get_kernel`` with the active mesh,
+so its lanes score a slice of the candidates per ``sp`` rank;
+``fmin_fleet(mesh=)`` splits the lanes over ``mesh["dp"]``.  Not in this
+slice: the service's cohort gate (the service slice).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import numpy as np
 
 from . import base, tpe
 from . import device as _device
+from . import dispatch as _dispatch
 from . import history as _rhist
 from .obs import costs as _costs
 from .obs import devtel as _devtel
@@ -71,8 +75,6 @@ padding_waste = 0.0
 _SCHEDULERS: "weakref.WeakSet" = weakref.WeakSet()
 #: Lane stacks of running :func:`fmin_fleet` calls, for :func:`fleet_report`.
 _LANE_STACKS: "weakref.WeakSet" = weakref.WeakSet()
-_NOT_PORTED = "{what} is not ported yet: it belongs to the {slice} slice " \
-              "(ROADMAP.md Queue 1)"
 
 
 def reset_counters():
@@ -368,12 +370,15 @@ class CohortScheduler:
         kw = self._kwargs
         state = self._states.setdefault(key, _CohortState())
         rep = self._rep(sig, members[0].cs)
-        kern = tpe.get_kernel(rep, n_cap, kw["n_EI_candidates"],
-                              kw["linear_forgetting"], kw["split"],
-                              kw["cat_prior"], dev, kw["ei_impl"],
-                              kw["ei_precision"], kw["ei_topm"],
-                              kw["multivariate"], kw["comp_sampler"],
-                              kw["split_impl"], kw["fused_step"])
+        # With a mesh active the lanes run against the sharded kernel;
+        # non-strict: an indivisible candidate count takes the local one.
+        kern = _dispatch.get_kernel(rep, n_cap, kw["n_EI_candidates"],
+                                    kw["linear_forgetting"], kw["split"],
+                                    kw["cat_prior"], dev, kw["ei_impl"],
+                                    kw["ei_precision"], kw["ei_topm"],
+                                    kw["multivariate"], kw["comp_sampler"],
+                                    kw["split_impl"], kw["fused_step"],
+                                    mesh=_dispatch.active_mesh())
         assigned = self._assign_lanes(state, members)
         b = len(state.lanes)
         kern.check_lanes(b)
@@ -513,7 +518,12 @@ def fmin_fleet(fn, space, n_lanes, max_evals, seed=0, sync_stride=None,
     lane order; with telemetry armed, each also holds ``telemetry``, the
     lane's slab over the run (``best_loss``, ``ei_max``, ``ei_mean``,
     ``tpe_steps``, ``nonfinite``, ``argmax_ties``, and the last segment's
-    ``best_trajectory``)."""
+    ``best_trajectory``).
+
+    ``mesh`` (a ``dispatch`` mesh; every rank calls with the same
+    arguments) splits the lanes over ``mesh["dp"]``, which must divide
+    ``n_lanes``: each rank runs its share in its own graph, each segment's
+    rows are all-gathered, and every rank lands and returns all lanes."""
     cs = space if isinstance(space, CompiledSpace) else compile_space(space)
     n_lanes = int(n_lanes)
     max_evals = int(max_evals)
@@ -528,22 +538,32 @@ def fmin_fleet(fn, space, n_lanes, max_evals, seed=0, sync_stride=None,
         sync_stride = int(sync_stride)
         if sync_stride < 1:
             raise ValueError("sync_stride must be >= 1 or None")
+    n_dp, r_dp = 1, 0
     if mesh is not None:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="fmin_fleet(mesh=)", slice="dispatch"))
+        _dispatch._check_axes(mesh)
+        n_dp = _dispatch.axis_size(mesh, _dispatch.START_AXIS)
+        r_dp = _dispatch.axis_rank(mesh, _dispatch.START_AXIS)
+        if n_lanes % n_dp:
+            raise ValueError(
+                f"n_lanes={n_lanes} not divisible by the {n_dp}-way "
+                f"'{_dispatch.START_AXIS}' mesh axis")
+    n_local = n_lanes // n_dp
     dev = resolve_device(device)
     telemetry = _devtel.enabled()
+    # Lanes split over dp; each lane's step uses the local kernel, so the
+    # two partitionings do not fight (the JAX package's rule).
     seg = _device._segment_for(fn, cs, max_evals, dev, n_startup_jobs,
                               n_EI_candidates, gamma, prior_weight,
                               linear_forgetting, split, cat_prior, ei_impl,
-                              ei_precision, ei_topm, n_lanes=n_lanes,
+                              ei_precision, ei_topm, n_lanes=n_local,
                               telemetry=telemetry, multivariate=multivariate,
                               comp_sampler=comp_sampler,
                               split_impl=split_impl, fused_step=fused_step)
     # Alive for this call: the weak set drops it when the call returns.
     stack = _LaneStackHandle(seg)
     _LANE_STACKS.add(stack)
-    rstates = [np.random.default_rng(int(seed) + j) for j in range(n_lanes)]
+    rstates = [np.random.default_rng(int(seed) + r_dp * n_local + j)
+               for j in range(n_local)]
     p = cs.n_params
     reg = _registry()
     stride_label = "inf" if sync_stride is None else str(sync_stride)
@@ -564,6 +584,10 @@ def fmin_fleet(fn, space, n_lanes, max_evals, seed=0, sync_stride=None,
             t0 = time.perf_counter()
             seg.run(_device._lane_seeds(rstates, s))
             vals, acts, losses, _, tel = seg.fetch_slab(i, i + s)
+            if n_dp > 1:
+                vals, acts, losses, *tel = _dispatch.gather_lanes(
+                    mesh, [vals, acts, losses] + list(tel or ()))
+                tel = tel or None
             t1 = time.perf_counter()
             parts.append((vals, acts, losses))
             if telemetry:

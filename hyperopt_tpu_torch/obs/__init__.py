@@ -17,7 +17,11 @@ is a setter or an argument here:
   :mod:`~.flight` (``flight.install(dump_dir)``), :mod:`~.device` and
   :mod:`~.devtel` (``devtel.set_enabled``): the cost ledger, health
   verdicts, postmortem bundles, the flight recorder, device memory and
-  the device-mode telemetry slab.
+  the device-mode telemetry slab;
+* :mod:`~.timeseries`, :mod:`~.slo` and :mod:`~.export`: the windowed
+  store over the registry (``TimeSeriesStore``, which
+  ``devtel.set_backfill_store`` scrapes at every device-mode boundary),
+  SLO burn-rate alerting and the OpenMetrics text exposition.
 
 Everything here is host-side bookkeeping; the only work on the card is
 device mode's two per-trial stores of the slab (``device._Segment``).
@@ -28,7 +32,10 @@ from __future__ import annotations
 from . import bundle  # noqa: F401
 from . import context  # noqa: F401
 from . import costs  # noqa: F401
+from . import export  # noqa: F401
 from . import flight  # noqa: F401
+from . import slo  # noqa: F401
+from . import timeseries  # noqa: F401
 from .events import EVENTS, EventLog, events_to_chrome  # noqa: F401
 from .metrics import (  # noqa: F401
     LabelLru,

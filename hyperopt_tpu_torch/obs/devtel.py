@@ -34,7 +34,7 @@ layers see nothing.  The slab fills that gap:
   ``device.fetch_syncs.<mode>.<stride>`` / ``device.segments.<mode>.
   <stride>`` twins (LRU-bounded labels);
 * a time-series store, when one is registered with
-  :func:`set_backfill_store` (the service slice plugs its store in here);
+  :func:`set_backfill_store` (``obs.timeseries.TimeSeriesStore``);
 * ``obs.costs``: the segment's host wall time as a dispatch row;
 * the flight recorder: the latest slab per run, the ``device_telemetry``
   bundle section (:func:`report`);

@@ -647,13 +647,16 @@ class CompiledSpace:
         return out
 
     def __getstate__(self):
-        # The TPE kernel cache (tpe.get_kernel), the other heads' program
-        # caches (anneal, GP, ES), the sampler's constants and device
-        # mode's captured runs hold device tensors; they are rebuilt on
-        # demand and not pickled.
+        # The TPE kernel caches (tpe.get_kernel; dispatch.get_kernel's
+        # sharded kernels, which also hold a mesh and its process groups),
+        # the other heads' program caches (anneal, GP, ES), the sampler's
+        # constants and device mode's captured runs hold device tensors;
+        # they are rebuilt on demand on the device the loading process
+        # resolves, and not pickled.
         state = self.__dict__.copy()
-        for k in ("_tpe_kernels", "_anneal_kernels", "_gp_kernels",
-                  "_es_kernels", "_dev_consts", "_device_runs"):
+        for k in ("_tpe_kernels", "_dispatch_kernels", "_anneal_kernels",
+                  "_gp_kernels", "_es_kernels", "_dev_consts",
+                  "_device_runs"):
             state.pop(k, None)
         return state
 

@@ -467,12 +467,13 @@ class _TpeKernel:
             # truncated: the below one also feeds the draws.
             if 0 < self.ei_topm < lwa.shape[-1]:
                 lwa, mua, sga = truncate_mixture(lwa, mua, sga, self.ei_topm)
-            n = zc.shape[-1]
+            zs = self._cand_slice(zc)
+            n = zs.shape[-1]
             rows = [t.reshape(-1, t.shape[-1]).contiguous()
-                    for t in (zc, lwb, mub, sgb, lwa, mua, sga)]
+                    for t in (zs, lwb, mub, sgb, lwa, mua, sga)]
             ei = ei_scores(*rows, mxu=self.ei_impl == "mxu",
                            bf16=self.ei_precision == "bf16")
-            return x_nat, ei.reshape(*zc.shape[:-1], n)
+            return x_nat, ei.reshape(*zs.shape[:-1], n)
         q = gt.q[:, None]
         v = torch.round(x_nat / q) * q
         v = torch.minimum(torch.maximum(v, gt.clip_lo[:, None]),
@@ -502,10 +503,10 @@ class _TpeKernel:
             ei_lat = ei_q(*q_edges(gt.lat_vals))              # [..., C, Lat]
             idx = torch.round(v / q).to(torch.int64) - gt.lat_k0[:, None]
             idx = torch.clamp(idx, 0, gt.lat_vals.shape[1] - 1)
-            return v, onehot_lookup(idx, ei_lat, _NEG)
-        zl, zh = q_edges(v)
-        n = v.shape[-1]
-        rows = v.numel() // max(1, n)
+            return v, onehot_lookup(self._cand_slice(idx), ei_lat, _NEG)
+        zl, zh = q_edges(self._cand_slice(v))
+        n = zl.shape[-1]
+        rows = zl.numel() // max(1, n)
         chunk = max(1, _Q_ELEMS // max(1, rows * lwa.shape[-1]))
         ei = torch.cat([ei_q(zl[..., i:i + chunk], zh[..., i:i + chunk])
                         for i in range(0, n, chunk)], dim=-1)
@@ -548,8 +549,35 @@ class _TpeKernel:
         # finite value keeps a selectable option with zero above-mass on
         # top of the argmax (its true ratio is +inf).
         diff = torch.clamp_min(lpb, _NEG) - torch.clamp_min(lpa, _NEG)
-        score = onehot_lookup(cand, diff)
+        score = onehot_lookup(self._cand_slice(cand), diff)
         return cand.to(torch.float32) + ct.offsets[:, None], score
+
+    # -- the candidate axis ----------------------------------------------------
+    #
+    # The local step scores every candidate and reduces its argmaxes on
+    # the spot; dispatch.ShardedTpeKernel overrides these two hooks to
+    # score one slice of the candidates per rank and to reduce the
+    # argmaxes over its ranks.
+
+    def _cand_slice(self, x, dim=-1):
+        """The candidates this kernel scores, along ``dim`` of ``x``: all
+        of them."""
+        return x
+
+    def _reduce_stats(self, stats):
+        """Per-sheet ``(bi, best, ties)`` of :func:`ei_argmax_stats` over
+        the scored candidates, as winners over all candidates: the same
+        here."""
+        return stats
+
+    def _next_bucket(self):
+        """This kernel's twin at the next history bucket (``2·n_cap``,
+        the same arguments): what :func:`_prewarm_async` builds."""
+        return get_kernel(self.cs, self.n_cap * 2, self.n_cand, self.lf,
+                          self.split, self.cat_prior, self.device,
+                          self.ei_impl, self.ei_precision, self.ei_topm,
+                          self.multivariate, self.comp_sampler,
+                          self.split_impl, self.fused_step)
 
     # -- the step ------------------------------------------------------------
 
@@ -627,8 +655,8 @@ class _TpeKernel:
             cols.append((self._cat.pids, cv, score))
         if self.multivariate:
             return self._joint_winner(cols, n_lanes)
-        for pids, v, ei in cols:
-            bi, best, ties = ei_argmax_stats(ei)
+        stats = self._reduce_stats([ei_argmax_stats(ei) for _, _, ei in cols])
+        for (pids, v, _), (bi, best, ties) in zip(cols, stats):
             row[:, pids] = torch.gather(v, -1, bi[..., None])[..., 0]
             ei_best = torch.maximum(ei_best, torch.amax(best, dim=-1))
             ei_ties = ei_ties + torch.sum(ties, dim=-1)
@@ -650,16 +678,20 @@ class _TpeKernel:
         n, p = self.n_cand, self.cs.n_params
         dev = self.device
         cand = torch.zeros((n_lanes, n, p), dtype=torch.float32, device=dev)
-        ei_cols = torch.zeros((n_lanes, n, p), dtype=torch.float32,
+        # The score sheets cover this kernel's candidates (all of them on
+        # the local path, a slice in dispatch.ShardedTpeKernel).
+        n_sc = cols[0][2].shape[-1] if cols else n
+        ei_cols = torch.zeros((n_lanes, n_sc, p), dtype=torch.float32,
                               device=dev)
         for pids, v, ei in cols:
             cand[:, :, pids] = v.transpose(-1, -2)
             ei_cols[:, :, pids] = ei.transpose(-1, -2)
         act = self.cs.active_mask(cand.view(n_lanes * n, p)).view(
             n_lanes, n, p)
-        total = tree_sum(torch.where(act, ei_cols, torch.zeros_like(ei_cols)),
+        total = tree_sum(torch.where(self._cand_slice(act, dim=1), ei_cols,
+                                     torch.zeros_like(ei_cols)),
                          dim=-1)                            # [L, n_cand]
-        bi, best, ties = ei_argmax_stats(total)
+        ((bi, best, ties),) = self._reduce_stats([ei_argmax_stats(total)])
         at = bi[:, None, None].expand(n_lanes, 1, p)
         return (torch.gather(cand, 1, at)[:, 0],
                 torch.gather(act, 1, at)[:, 0], best, ties.to(torch.int64))
@@ -896,10 +928,7 @@ def _prewarm_async(kern: _TpeKernel, n: int = 1):
 
     def go():
         try:
-            get_kernel(kern.cs, kern.n_cap * 2, kern.n_cand, kern.lf,
-                       kern.split, kern.cat_prior, kern.device, kern.ei_impl,
-                       kern.ei_precision, kern.ei_topm, kern.multivariate,
-                       kern.comp_sampler, kern.split_impl, kern.fused_step)
+            kern._next_bucket()
         except Exception:
             logging.getLogger(__name__).debug("bucket prewarm failed",
                                               exc_info=True)
@@ -1059,9 +1088,48 @@ def suggest_dispatch(new_ids, domain, trials, seed,
     Handle: ``(tag, cs, new_ids, rows, exp_key)`` with ``rows`` a host
     ``(vals, active)`` pair ("ready": empty space or startup) or a
     :class:`_PendingRows` over device rows not yet fetched ("pending":
-    ``[P]`` for one proposal, ``[m, P]`` for a batch)."""
+    ``[P]`` for one proposal, ``[m, P]`` for a batch).
+
+    With a mesh active (``dispatch.active_mesh()``: one registered by
+    ``dispatch.set_default_mesh`` or ``parallel.multihost.initialize``, or
+    built under ``dispatch.set_mode("sharded")``), the call goes to
+    ``dispatch.suggest_dispatch``, whose kernel scores a slice of the
+    candidates per rank; the proposals are the same bits."""
+    from . import dispatch
+
+    mesh = dispatch.active_mesh()
+    if mesh is not None:
+        return dispatch.suggest_dispatch(
+            new_ids, domain, trials, seed, mesh=mesh,
+            prior_weight=prior_weight, n_startup_jobs=n_startup_jobs,
+            n_EI_candidates=n_EI_candidates, gamma=gamma,
+            linear_forgetting=linear_forgetting, split=split,
+            cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
+            ei_topm=ei_topm, resident=resident, multivariate=multivariate,
+            startup=startup, comp_sampler=comp_sampler,
+            split_impl=split_impl, fused_step=fused_step, verbose=verbose)
     _check_ei_args(ei_impl, ei_precision, ei_topm)
     _check_lowerings(comp_sampler, split_impl, fused_step)
+    dev = resolve_device(domain.cs.device)
+
+    def acquire(n_cap):
+        return get_kernel(domain.cs, n_cap, int(n_EI_candidates),
+                          int(linear_forgetting), split, cat_prior, dev,
+                          ei_impl, ei_precision, ei_topm, multivariate,
+                          comp_sampler, split_impl, fused_step)
+
+    return _dispatch_with(acquire, new_ids, domain, trials, seed,
+                          prior_weight, n_startup_jobs, gamma, resident,
+                          startup)
+
+
+def _dispatch_with(acquire, new_ids, domain, trials, seed, prior_weight,
+                   n_startup_jobs, gamma, resident, startup, noise=None):
+    """The body of :func:`suggest_dispatch` with the kernel from
+    ``acquire(n_cap)`` (``dispatch.suggest_dispatch`` passes its own).
+    ``noise``: the step's uniforms instead of the seed's generator, a
+    :meth:`_TpeKernel.draw_noise` dict for one proposal or a list of one
+    per liar step for a batch."""
     cs = domain.cs
     dev = resolve_device(cs.device)
     n = len(new_ids)
@@ -1089,10 +1157,7 @@ def suggest_dispatch(new_ids, domain, trials, seed,
         h = _with_inflight_fantasies(h, trials, cs)
         n_rows = h["vals"].shape[0]
     m = _batch_size_for(n)
-    kern = get_kernel(cs, _bucket(n_rows + (m if n > 1 else 0)),
-                      int(n_EI_candidates), int(linear_forgetting), split,
-                      cat_prior, dev, ei_impl, ei_precision, ei_topm,
-                      multivariate, comp_sampler, split_impl, fused_step)
+    kern = acquire(_bucket(n_rows + (m if n > 1 else 0)))
     if n_rows >= 0.75 * kern.n_cap:
         # Near the bucket boundary: build the next bucket's kernel off this
         # thread, and (resident) pad-copy the ring to it, so that the call
@@ -1110,12 +1175,14 @@ def suggest_dispatch(new_ids, domain, trials, seed,
     reg = _metrics_registry()
     t_disp = perf_counter()
     _obs_ms(reg, "suggest.upload_ms", (t_disp - t_feed) * 1e3)
-    gen = make_generator(dev, int(seed) % (2 ** 32))
+    gen = (make_generator(dev, int(seed) % (2 ** 32)) if noise is None
+           else None)
     if n == 1:
-        rows, _ = kern(*hist, gamma, prior_weight, generator=gen)
+        rows, _ = kern(*hist, gamma, prior_weight, generator=gen,
+                       noise=noise)
     else:
         rows, _ = kern.suggest_many(m, n_rows, *hist, gamma, prior_weight,
-                                    generator=gen)
+                                    generator=gen, noises=noise)
     # Host clocks only: on the card this is the enqueue, not the step.
     dms = (perf_counter() - t_disp) * 1e3
     _obs_ms(reg, "suggest.dispatch_ms", dms)

@@ -321,9 +321,10 @@ def test_max_evals_required():
 
 
 def test_fleet_options_not_ported():
-    """``mesh=`` waits for the dispatch slice; ``n_runs > 1`` is ported
+    """``mesh=`` came with the dispatch slice and takes a ``dispatch``
+    mesh only (``tests/test_torch_dispatch.py``); ``n_runs > 1`` is ported
     (``tests/test_torch_fleet.py``)."""
-    with pytest.raises(NotImplementedError, match="dispatch slice"):
+    with pytest.raises(ValueError, match="dimensions"):
         ht.fmin_device(quad_dev, SPACE_QUAD, max_evals=8, mesh=object(),
                        device=CPU)
 

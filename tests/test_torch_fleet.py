@@ -417,7 +417,8 @@ def test_fmin_fleet_validation():
     with pytest.raises(ValueError, match="sync_stride"):
         fleet.fmin_fleet(obj, FLEET_SPACE, n_lanes=2, max_evals=4,
                          sync_stride=0, device=CPU)
-    with pytest.raises(NotImplementedError, match="dispatch slice"):
+    # mesh= takes a dispatch mesh (tests/test_torch_dispatch.py).
+    with pytest.raises(ValueError, match="dimensions"):
         fleet.fmin_fleet(obj, FLEET_SPACE, n_lanes=2, max_evals=4,
                          mesh=object(), device=CPU)
     # multivariate=True runs since the joint step was ported

@@ -411,6 +411,40 @@ def _assert_report_close(got, want):
             assert got[k] == w, k
 
 
+def two_uniform(pkg):
+    return {"u": pkg.hp.uniform("u", -2.0, 3.0),
+            "v": pkg.hp.uniform("v", 0.0, 1.0)}
+
+
+@pytest.mark.parametrize("max_n", [8, 16])
+def test_gp_introspect_fits_at_least_16_rows_as_jax(monkeypatch, max_n):
+    """``max_n`` below 16 fits 16 rows, as ``suggest_dispatch`` and JAX's
+    ``_max_fit_rows`` do: 24 random-search trials on two uniforms, against
+    JAX with its row cap set to the same ``max_n``."""
+    dj = hj.base.Domain(lambda cfg: 0.0, two_uniform(hj))
+    dt = ht.Domain(lambda cfg: 0.0, two_uniform(ht))
+    dt.cs.device = CPU
+    docs = hj.rand.suggest(list(range(24)), dj, hj.Trials(), 11)
+    for d in docs:
+        v = d["misc"]["vals"]
+        d["state"] = hj.JOB_STATE_DONE
+        d["result"] = {"status": "ok",
+                       "loss": float((v["u"][0] - 0.7) ** 2 + v["v"][0])}
+    tj, tt = hj.Trials(), ht.Trials()
+    for t in (tj, tt):
+        t.insert_trial_docs(copy.deepcopy(docs))
+        t.refresh()
+    monkeypatch.setenv("HYPEROPT_TPU_GP_MAX_N", str(max_n))
+    monkeypatch.setattr(dt.cs, "sample", _jax_sampler(dj))
+    got = gp_t.introspect(dt, tt, seed=5, max_n=max_n)
+    want = gp_j.introspect(dj, tj, seed=5)
+    _assert_report_close(got, want)
+    for k in ("logml", "ls", "noise"):
+        assert k in got
+    # The fit does not depend on a cap under 16.
+    _assert_report_close(got, gp_t.introspect(dt, tt, seed=5, max_n=16))
+
+
 @pytest.mark.parametrize("n_hist", [3, 30])
 def test_gp_introspect_and_health_equal_jax(monkeypatch, n_hist):
     dj, tj, dt, tt = _pair(n_hist)

@@ -71,11 +71,17 @@ def test_imports_with_jax_blocked():
         "import hyperopt_tpu_torch.backends.contract\n"
         "import hyperopt_tpu_torch.backends._codec\n"
         "import hyperopt_tpu_torch.backends.gp, hyperopt_tpu_torch.backends.es\n"
+        "import hyperopt_tpu_torch.dispatch, hyperopt_tpu_torch.utils.tracing\n"
+        "import hyperopt_tpu_torch.parallel.sharded\n"
+        "import hyperopt_tpu_torch.parallel.filestore\n"
+        "import hyperopt_tpu_torch.parallel.multihost\n"
+        "import hyperopt_tpu_torch.obs.timeseries\n"
+        "import hyperopt_tpu_torch.obs.slo, hyperopt_tpu_torch.obs.export\n"
         "sys.path.insert(0, 'tests_torch_cuda')\n"
         "import conftest, test_torch_cuda_device, test_torch_cuda_ei_scores\n"
         "import test_torch_cuda_fleet, test_torch_cuda_obs\n"
         "import test_torch_cuda_pipeline, test_torch_cuda_tpe_rest\n"
-        "import test_torch_cuda_backends\n"
+        "import test_torch_cuda_backends, test_torch_cuda_dispatch\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hyperopt_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "assert 'matplotlib' not in sys.modules\n"
