@@ -168,7 +168,28 @@ Phases, each fatal on failure:
                the registry's OpenMetrics text round-trips through the
                strict parser, the default SLOs evaluate.  The mesh is
                unregistered and the process group destroyed at the end.
-13. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
+13. netstore  the network store at the same width: (a) a token-protected
+               ``StoreServer`` in a thread, the flagship domain published
+               on cuda, the 1,000-trial history inserted and read back
+               through ``NetTrials`` in binary frames; (b) 16
+               ``server_suggest`` proposals (seeds 0-15) equal 16
+               in-process ``tpe.suggest`` calls on the same history bit
+               for bit, with exactly 16 K1 launches on the server side,
+               and json mode gives the same docs; (c) every head of
+               ``backends.names()``, plus ``tpe_bf16`` and ``tpe_mxu``
+               registered by name, served once over the wire equals its
+               in-process call (K2 and K3 once each); (d) host ms of a
+               server-side round trip (and of the server's verb, the head
+               inside it and the server store's refresh) against the
+               in-process suggest, and of a full refresh of the 1,000
+               docs in binary frames against JSON, medians of 10 in two
+               turns; (e)
+               ``multihost.run_driver`` over the server's URL with 2
+               worker processes of the netstore's CLI: 84 trials DONE, no
+               tid claimed twice, every worker exits 0, K1 once per
+               post-startup suggest; (f) ``GET /metrics`` negotiated as
+               OpenMetrics passes the strict parser.
+14. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
                and every collected test passed.
 
 Prints the card's name and power limit first and again before the
@@ -319,6 +340,18 @@ DISPATCH_STARTS = 8
 DISPATCH_DRIVER = 64
 DISPATCH_WORKERS = 2
 DISPATCH_OBS_RUN = 256
+# netstore: server-side proposals at seeds 0..15 (b), the seed of each
+# head's one proposal (c), timed calls per turn (d), trials of the driven
+# run after startup and its worker processes (e), the server's token.
+NET_SUGGESTS = 16
+NET_HEAD_SEED = 21
+NET_TIMED = 10
+NET_DRIVER = 64
+NET_WORKERS = 2
+NET_TOKEN = "chip-smoke-token"
+# The heads the netstore phase registers to serve K2 and K3 by name.
+NET_EXTRA_HEADS = {"tpe_bf16": dict(ei_precision="bf16"),
+                   "tpe_mxu": dict(ei_impl="mxu")}
 # Kernel symbol of each lowering, as the profiler names it.
 KERNEL_SYMBOLS = {"f32": "ei_scores_kernel<false>",
                   "bf16": "ei_scores_kernel<true>",
@@ -3157,6 +3190,266 @@ def phase_dispatch(dev):
     return tally.rows()
 
 
+def net_counter(name):
+    return metrics.registry().snapshot()["counters"].get(name, 0.0)
+
+
+def host_ms(fn, n=NET_TIMED):
+    """Host ms of each of ``n`` calls ``fn(i)``, as a list (the caller
+    interleaves the turns of what it compares and takes the median)."""
+    out = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_netstore(dev):
+    """The network store at full width, checks (a) to (f).  Returns
+    ``{lowering: (eager launches, 0, 0)}`` over the server-side suggests
+    and the driven run."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    from hyperopt_tpu_torch import backends, dispatch, wire
+    from hyperopt_tpu_torch.backends import contract
+    from hyperopt_tpu_torch.obs import export
+    from hyperopt_tpu_torch.parallel import (FileTrials, NetTrials,
+                                             StoreServer, multihost)
+    from hyperopt_tpu_torch.parallel.netstore import server_suggest
+
+    t_phase = time.perf_counter()
+    metrics.set_enabled(True)
+    space = flagship_space()
+    cs = compile_space(space)
+    ek = "flagship"
+    history0 = [dict(d, exp_key=ek)
+                for d in synthetic_trials(cs, N_HISTORY, 12, dev)]
+    tally = Tally()
+    root = tempfile.mkdtemp(prefix="chip_smoke_netstore_")
+    srv = StoreServer(root, token=NET_TOKEN)
+    srv.start()
+    for name, kw in NET_EXTRA_HEADS.items():
+        backends.register_backend(name, partial(tpe.suggest, **kw),
+                                  replace=True)
+    prev_mode = wire.mode()
+    try:
+        # (a) set-up: the flagship domain published on CUDA, the history
+        # inserted and read back in binary frames.
+        wire.set_mode("binary")
+        f0, b0 = net_counter("wire.frames"), net_counter("wire.bytes_tx")
+        nt = NetTrials(srv.url, exp_key=ek, token=NET_TOKEN)
+        domain = base.Domain(objective, space)
+        domain.cs.device = dev
+        nt.save_domain(domain)
+        t0 = time.perf_counter()
+        nt.insert_trial_docs(history0)
+        nt.refresh()
+        ins_s = time.perf_counter() - t0
+        frames = net_counter("wire.frames") - f0
+        nbytes = net_counter("wire.bytes_tx") - b0
+        if len(nt) != N_HISTORY or frames <= 0 or nbytes <= 0:
+            fail(f"netstore (a): {len(nt)} docs read back, {frames} frames, "
+                 f"{nbytes} bytes")
+        local = base.trials_from_docs(copy.deepcopy(history0), exp_key=ek)
+        ids = [N_HISTORY]
+        print(f"netstore (a): StoreServer on {srv.url} (token), the "
+              f"flagship domain published on {dev}, {N_HISTORY} docs "
+              f"inserted and read back in {frames:.0f} binary frames "
+              f"({nbytes:.0f} bytes sent, both directions in this process) "
+              f"in {ins_s:.2f} s")
+
+        # (b) 16 server-side TPE proposals against 16 in-process ones.
+        def server_rows(mode):
+            wire.set_mode(mode)
+            return tally.counted("f32", lambda: [
+                server_suggest(ids, None, nt, s, n_EI_candidates=N_CAND)
+                for s in range(NET_SUGGESTS)])
+
+        got = server_rows("binary")
+        k_bin = dict(ei_mod.ei_scores.launches_by)
+        want = [tpe.suggest(ids, domain, local, s, n_EI_candidates=N_CAND)
+                for s in range(NET_SUGGESTS)]
+        if k_bin != {k: NET_SUGGESTS * (k == "f32") for k in k_bin}:
+            fail(f"netstore (b): server-side K1 launches {k_bin}, wanted "
+                 f"{NET_SUGGESTS} of f32")
+        if got != want:
+            bad = [s for s, (a, b) in enumerate(zip(got, want)) if a != b]
+            fail(f"netstore (b): server-side rows differ from the "
+                 f"in-process rows at seeds {bad}")
+        got_json = server_rows("json")
+        if got_json != got:
+            fail("netstore (b): json mode gave other docs than binary")
+        print(f"netstore (b): {NET_SUGGESTS} server_suggest proposals "
+              f"(seeds 0-{NET_SUGGESTS - 1}, {N_CAND} candidates) equal "
+              f"the in-process tpe.suggest rows bit for bit, K1 "
+              f"{k_bin['f32']} launches on the server side; json mode gives "
+              f"the same docs")
+
+        # (c) every head by name over the wire, against its in-process
+        # call; K2 and K3 through the heads registered for them.
+        table = contract.server_table()
+        wire.set_mode("binary")
+        heads = {}
+        for name in backends.names():
+            got1 = tally.counted("f32", lambda: server_suggest(
+                ids, None, nt, NET_HEAD_SEED, algo=name))
+            by = dict(ei_mod.ei_scores.launches_by)
+            want1 = table[name](ids, domain, local, NET_HEAD_SEED)
+            if got1 != want1:
+                fail(f"netstore (c): {name} served over the wire differs "
+                     f"from its in-process call")
+            low = {"tpe_bf16": "bf16", "tpe_mxu": "mxu"}.get(name, "f32")
+            n_want = int(name in TPE_FAMILY or name == "atpe"
+                         or name in NET_EXTRA_HEADS)
+            if by != {k: n_want * (k == low) for k in by}:
+                fail(f"netstore (c): {name}: EI launches {by}, wanted "
+                     f"{n_want} of {low}")
+            heads[name] = by[low]
+        print(f"netstore (c): {len(heads)} heads served by name equal their "
+              f"in-process calls (gp card against card); EI launches "
+              f"through the wire {heads}")
+
+        # (d) host ms: a server-side round trip against the in-process
+        # suggest, and a full refresh in binary frames against JSON.
+        # The round trip splits into the server's verb (``_dispatch``,
+        # timed in its handler thread) and, inside it, the head's call.
+        ms = {"server": [], "local": [], "binary": [], "json": [],
+              "verb": [], "head": [], "store_refresh": []}
+        heads_table = srv._server_algos()
+        real_dispatch, real_head = srv._dispatch, heads_table["tpe"]
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    ms[key].append((time.perf_counter() - t0) * 1e3)
+            return run
+
+        store = srv._trials[(None, ek)]
+        for turn in range(2):
+            srv._dispatch = timed("verb", real_dispatch)
+            heads_table["tpe"] = timed("head", real_head)
+            try:
+                ms["server"] += tally.counted("f32", lambda: host_ms(
+                    lambda i: server_suggest(ids, None, nt, 100 + i,
+                                             n_EI_candidates=N_CAND)))
+            finally:
+                srv._dispatch = real_dispatch
+                heads_table["tpe"] = real_head
+            ms["local"] += host_ms(lambda i: tpe.suggest(
+                ids, domain, local, 100 + i, n_EI_candidates=N_CAND))
+            ms["store_refresh"] += host_ms(lambda i: store.refresh())
+            for mode in ("binary", "json"):
+                wire.set_mode(mode)
+                ms[mode] += host_ms(lambda i: nt.refresh())
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        if len(nt) != N_HISTORY or len(ms["verb"]) != 2 * NET_TIMED:
+            fail(f"netstore (d): refresh read {len(nt)} docs, "
+                 f"{len(ms['verb'])} timed verbs")
+        print(f"netstore (d): host ms, medians of {NET_TIMED} x 2 turns: "
+              f"server-side suggest round trip={med['server']:.3f} (the "
+              f"server's verb {med['verb']:.3f}, the head inside it "
+              f"{med['head']:.3f}) in-process suggest={med['local']:.3f} "
+              f"(wire and lock {med['server'] - med['local']:+.3f}); the "
+              f"server store's refresh={med['store_refresh']:.3f}; refresh "
+              f"of {N_HISTORY} docs binary={med['binary']:.3f} "
+              f"json={med['json']:.3f}")
+        print("netstore (d) json: " + json.dumps(
+            {"server_suggest_ms": med["server"],
+             "server_verb_ms": med["verb"], "server_head_ms": med["head"],
+             "inprocess_suggest_ms": med["local"],
+             "server_store_refresh_ms": med["store_refresh"],
+             "refresh_binary_ms": med["binary"],
+             "refresh_json_ms": med["json"], "n_docs": N_HISTORY,
+             "n_timed": NET_TIMED, "turns": 2}))
+
+        # (e) run_driver over the server's URL, two worker processes of
+        # the netstore's CLI (the hyperopt-tpu-torch-netstore entry).
+        wire.set_mode("auto")
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here)
+        workers = [subprocess.Popen(
+            [sys.executable, "-m", "hyperopt_tpu_torch.parallel.netstore",
+             "--worker", srv.url, "--exp-key", "mh", "--token", NET_TOKEN,
+             "--reserve-timeout", "5", "--poll-interval", "0.01"],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for _ in range(NET_WORKERS)]
+        n_drive = tpe._default_n_startup_jobs + NET_DRIVER
+        try:
+            t0 = time.perf_counter()
+            tally.counted("f32", lambda: multihost.run_driver(
+                chip_smoke.objective, space, store_root=srv.url,
+                exp_key="mh", max_evals=n_drive, token=NET_TOKEN,
+                n_EI_candidates=N_CAND, rstate=np.random.default_rng(5),
+                show_progressbar=False, device=dev))
+            drive_s = time.perf_counter() - t0
+            k1 = ei_mod.ei_scores.launches_by["f32"]
+        finally:
+            outs = []
+            for p in workers:
+                try:
+                    outs.append(p.communicate(timeout=120))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    outs.append(p.communicate())
+            if dist.is_initialized():
+                dispatch.clear_default_mesh()
+                dist.destroy_process_group()
+        for p, (_, err) in zip(workers, outs):
+            if p.returncode != 0:
+                fail(f"netstore (e): a worker exited {p.returncode}:\n"
+                     f"{err[-2000:]}")
+        ft = FileTrials(root, exp_key="mh")
+        tids = [d["tid"] for d in ft]
+        owners = {d["owner"] for d in ft}
+        for d in ft:
+            with open(ft._claim_path(d["tid"])) as f:
+                if f.read() != d["owner"]:
+                    fail(f"netstore (e): trial {d['tid']} claimed twice")
+        if len(ft) != n_drive or len(set(tids)) != n_drive or any(
+                d["state"] != base.JOB_STATE_DONE for d in ft):
+            fail(f"netstore (e): {len(ft)} trials, {len(set(tids))} tids, "
+                 f"states {sorted({d['state'] for d in ft})}")
+        if k1 != NET_DRIVER:
+            fail(f"netstore (e): {k1} K1 launches for {NET_DRIVER} TPE "
+                 f"trials")
+        print(f"netstore (e): run_driver over {srv.url} with {NET_WORKERS} "
+              f"worker processes (python -m "
+              f"hyperopt_tpu_torch.parallel.netstore --worker): {n_drive} "
+              f"trials DONE ({NET_DRIVER} after startup, K1 {k1} times on "
+              f"the card), {len(owners)} owners, no tid claimed twice, "
+              f"every worker exited 0, {drive_s:.1f} s")
+
+        # (f) GET /metrics as OpenMetrics, through the strict parser.
+        from urllib.request import Request, urlopen
+
+        req = Request(srv.url + "/metrics", headers={
+            "X-Netstore-Token": NET_TOKEN,
+            "Accept": "application/openmetrics-text"})
+        with urlopen(req, timeout=30) as resp:
+            ctype = resp.headers["Content-Type"]
+            text = resp.read().decode("utf-8")
+        fams = export.parse_openmetrics(text)
+        if ctype != export.CONTENT_TYPE or not any(
+                "netstore_verb_suggest" in f for f in fams):
+            fail(f"netstore (f): /metrics gave {ctype}, families "
+                 f"{sorted(fams)[:20]}")
+        print(f"netstore (f): GET /metrics negotiated OpenMetrics: "
+              f"{len(fams)} families, {len(text)} bytes, parsed")
+    finally:
+        wire.set_mode(prev_mode)
+        srv.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"netstore: EI wrapper over the phase's counted runs: eager "
+          f"launches {tally.launches}; {time.perf_counter() - t_phase:.1f} s")
+    return tally.rows()
+
+
 def phase_card_tests():
     """``python -m pytest tests_torch_cuda`` in a subprocess: it must exit
     0 with every collected test passed."""
@@ -3207,6 +3500,7 @@ def main():
     rest_launches = phase_tpe_rest(dev, hosted)
     heads_launches, heads_err = phase_heads(dev)
     dispatch_launches = phase_dispatch(dev)
+    netstore_launches = phase_netstore(dev)
     phase_card_tests()
     print(f"total seconds {time.perf_counter() - t0:.1f}")
     rows = []
@@ -3216,7 +3510,8 @@ def main():
         # device_mode's, the fleet's, obs's and tpe_rest's eager warm-up
         # steps, the cohort dispatches, obs's hosted runs, the pipeline
         # phase's runs, tpe_rest's hosted runs, the heads phase's
-        # hosted runs and the dispatch phase's runs (K1 only).  A capture
+        # hosted runs, the dispatch phase's runs (K1 only) and the
+        # netstore phase's server-side suggests and driven run.  A capture
         # records
         # the launch into its graph without running it (graph_recorded);
         # graph_replays counts replays of graphs that hold the kernel, one
@@ -3231,7 +3526,8 @@ def main():
                                         pipeline_launches[low],
                                         rest_launches[low],
                                         heads_launches[low],
-                                        dispatch_launches[low]))
+                                        dispatch_launches[low],
+                                        netstore_launches[low]))
         n = (liar_launches[low] + (fmin_launches if low == "f32" else 0)
              + dev_launches)
         k = kernels[low]

@@ -23,7 +23,9 @@ Three lowerings of the same function, as in the JAX package:
 :func:`ei_scores_reference` for CPU tensors; there is no other route.  The
 kernels are compiled with ``nvcc`` at first use, one plain-C shared library
 per source, all sources at once, under ``build/hyperopt_tpu_torch/`` (named
-by the hash of the source), and bound with ``ctypes``.
+by the hash of the source), and bound with ``ctypes``.  The build holds a
+module lock, so threads of one process that first reach a kernel together
+build it once; the launch counts are bumped under a lock of their own.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -60,6 +63,10 @@ _A0_FLOOR = -1e30
 MAX_COLUMNS = 65535
 
 _libs: dict = {}
+# Held across the check, compile and load of build(); and around every
+# update of the launch counts.
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 #: Compiler report (registers, shared memory, spills) of each library
 #: built by this process.
 build_log: dict = {}
@@ -108,10 +115,18 @@ def load_library(path, entries) -> ctypes.CDLL:
 
 def build() -> dict:
     """Compile every kernel library that is missing, one ``nvcc`` per
-    source, all started together; load them all.
+    source, all started together; load them all.  Under a module lock: a
+    thread that arrives while another builds waits, then finds the
+    libraries built.  The temporary output is named by process and
+    thread, so builds of two processes never share one either.
 
     Returns ``{library: (path, seconds spent compiling it)}`` (0.0 for a
     library that already existed for its exact source)."""
+    with _BUILD_LOCK:
+        return _build_locked()
+
+
+def _build_locked() -> dict:
     started = {}
     for name, source in _SOURCES.items():
         path = _lib_path(name, source.read_bytes())
@@ -119,7 +134,7 @@ def build() -> dict:
             started[name] = (path, None, None, 0.0)
             continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         proc = compile_library(source, tmp)
         started[name] = (path, tmp, proc, time.perf_counter())
     out = {}
@@ -211,11 +226,12 @@ def ei_scores(z, logw_b, mu_b, sg_b, logw_a, mu_a, sg_a, mxu=False,
     if err != 0:
         raise RuntimeError(f"ei_scores {low} kernel launch failed: CUDA "
                            f"error {err}")
-    if recording:
-        ei_scores.recorded_by[low] += 1
-    else:
-        ei_scores.launches += 1
-        ei_scores.launches_by[low] += 1
+    with _COUNT_LOCK:
+        if recording:
+            ei_scores.recorded_by[low] += 1
+        else:
+            ei_scores.launches += 1
+            ei_scores.launches_by[low] += 1
     return out
 
 
@@ -227,9 +243,10 @@ ei_scores.recorded_by = dict.fromkeys(LOWERINGS, 0)
 def reset_launches():
     """Set the total and per-lowering launch counts, and the counts of
     launches recorded into graphs, to 0."""
-    ei_scores.launches = 0
-    ei_scores.launches_by = dict.fromkeys(LOWERINGS, 0)
-    ei_scores.recorded_by = dict.fromkeys(LOWERINGS, 0)
+    with _COUNT_LOCK:
+        ei_scores.launches = 0
+        ei_scores.launches_by = dict.fromkeys(LOWERINGS, 0)
+        ei_scores.recorded_by = dict.fromkeys(LOWERINGS, 0)
 
 
 def _terms_f32(logw, mu, sg):

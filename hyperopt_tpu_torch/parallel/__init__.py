@@ -1,5 +1,5 @@
-"""Parallel execution: the sharded suggest, trial-level parallelism and the
-file store.
+"""Parallel execution: the sharded suggest, trial-level parallelism, the
+file store and the network store.
 
 Counterpart of ``hyperopt_tpu/parallel``, for the parts ported so far:
 
@@ -12,13 +12,15 @@ Counterpart of ``hyperopt_tpu/parallel``, for the parts ported so far:
   :class:`CompletionQueueEvaluator` (the evaluator stage of ``fmin``'s
   pipelined loop);
 * :class:`FileTrials` and :class:`FileWorker` (:mod:`.filestore`: a
-  durable store on a shared directory, evaluated by worker processes) and
-  :mod:`.multihost` (driver and worker roles over it).
-
-The network store belongs to a later slice of the port.
+  durable store on a shared directory, evaluated by worker processes);
+* :class:`StoreServer`, :class:`NetTrials` and :class:`NetWorker`
+  (:mod:`.netstore`: the file store served over HTTP, with server-side
+  suggest);
+* :mod:`.multihost` (driver and worker roles over either store).
 """
 
 from .filestore import FileTrials, FileWorker  # noqa: F401
+from .netstore import NetTrials, NetWorker, StoreServer  # noqa: F401
 from .pool import CompletionQueueEvaluator, PoolTrials  # noqa: F401
 from .sharded import (  # noqa: F401
     ShardedTpeKernel,
@@ -28,5 +30,6 @@ from .sharded import (  # noqa: F401
 )
 
 __all__ = ["PoolTrials", "CompletionQueueEvaluator", "FileTrials",
-           "FileWorker", "ShardedTpeKernel", "default_mesh",
-           "multi_start_suggest", "sharded_suggest"]
+           "FileWorker", "NetTrials", "NetWorker", "StoreServer",
+           "ShardedTpeKernel", "default_mesh", "multi_start_suggest",
+           "sharded_suggest"]

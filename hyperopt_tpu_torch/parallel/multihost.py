@@ -7,24 +7,25 @@ Counterpart of ``hyperopt_tpu/parallel/multihost.py``.  Two tiers:
   builds the ``(dp, sp)`` mesh over the group's ranks and registers it with
   ``dispatch.set_default_mesh``, so that from then on every
   ``tpe.suggest`` of the process is the sharded, collective step;
-* **across processes**: a shared :class:`~.filestore.FileTrials`
-  directory, where :func:`run_driver` suggests and enqueues and
-  :func:`run_worker` (or ``hyperopt-tpu-torch-worker`` processes anywhere
-  the directory reaches) evaluates.
-
-The JAX package also routes an ``http(s)://`` store through its network
-store; that belongs to the netstore slice of the port, and such a
-``store_root`` raises ``NotImplementedError`` here.
+* **across processes**: a shared trial store, where :func:`run_driver`
+  suggests and enqueues and :func:`run_worker` evaluates.  A
+  ``store_root`` that is a service URL (``http(s)://...``) goes through
+  the network store (:class:`~.netstore.NetTrials` and
+  :class:`~.netstore.NetWorker`, or ``hyperopt-tpu-torch-netstore
+  --worker URL`` processes anywhere that reach the server); a path is a
+  shared :class:`~.filestore.FileTrials` directory (or
+  ``hyperopt-tpu-torch-worker`` processes anywhere the directory
+  reaches).
 
 Typical use (the same program on every host)::
 
     from hyperopt_tpu_torch.parallel import multihost
     mesh = multihost.initialize()          # a world of one without arguments
     if multihost.is_coordinator():
-        multihost.run_driver(fn, space, store_root="/mnt/shared/exp",
+        multihost.run_driver(fn, space, store_root="http://store:8417",
                              max_evals=1000)
     else:
-        multihost.run_worker(store_root="/mnt/shared/exp")
+        multihost.run_worker(store_root="http://store:8417")
 """
 
 from __future__ import annotations
@@ -35,10 +36,6 @@ from typing import Optional
 import torch
 
 logger = logging.getLogger(__name__)
-
-_NOT_PORTED = ("{what} with a service URL store_root is not ported yet: it "
-               "belongs to the netstore slice (parallel/netstore.py, "
-               "ROADMAP.md Queue 1)")
 
 
 def _is_service_url(store_root: str) -> bool:
@@ -100,10 +97,15 @@ def is_coordinator() -> bool:
 
 def run_driver(fn, space, store_root: str, max_evals: int, mesh=None,
                exp_key: str = "default", n_EI_candidates: int = 4096,
-               stale_timeout: float = 600.0, **fmin_kwargs):
-    """Coordinator role: the sharded TPE suggest and the enqueue into a
-    :class:`~.filestore.FileTrials` at ``store_root``; workers evaluate,
-    and stale trials of dead workers are requeued every loop.
+               stale_timeout: float = 600.0, token: Optional[str] = None,
+               retries: Optional[int] = None, **fmin_kwargs):
+    """Coordinator role: the sharded TPE suggest and the enqueue into the
+    store at ``store_root``; workers evaluate, and stale trials of dead
+    workers are requeued every loop.
+
+    ``store_root`` picks the transport: a service URL is a
+    :class:`~.netstore.NetTrials` (``token`` and ``retries`` are its),
+    a path a :class:`~.filestore.FileTrials` directory.
 
     ``mesh`` defaults to this process's one-rank mesh (the registered one,
     else one over a world of one).  A mesh of more than one rank raises
@@ -114,11 +116,17 @@ def run_driver(fn, space, store_root: str, max_evals: int, mesh=None,
     from .. import dispatch
     from ..base import Domain
     from ..fmin import fmin
-    from .filestore import FileTrials
     from .sharded import sharded_suggest
 
     if _is_service_url(store_root):
-        raise NotImplementedError(_NOT_PORTED.format(what="run_driver"))
+        from .netstore import NetTrials
+
+        trials = NetTrials(store_root, exp_key=exp_key, token=token,
+                           retries=retries)
+    else:
+        from .filestore import FileTrials
+
+        trials = FileTrials(store_root, exp_key=exp_key)
     if mesh is None:
         mesh = dispatch.active_mesh()
     if mesh is None:
@@ -128,10 +136,11 @@ def run_driver(fn, space, store_root: str, max_evals: int, mesh=None,
             f"run_driver needs a mesh of one rank, got {tuple(mesh.shape)}: "
             f"the sharded suggest is a collective that worker ranks never "
             f"enter, so the driver would wait on them forever")
-    trials = FileTrials(store_root, exp_key=exp_key)
     # Ship the Domain to the workers (fmin runs with allow_trials_fmin=False
-    # below, so the store's own fmin does not).
-    trials.save_domain(Domain(fn, space))
+    # below, so the store's own fmin does not), on fmin's device.
+    domain = Domain(fn, space)
+    domain.cs.device = fmin_kwargs.get("device")
+    trials.save_domain(domain)
     algo = partial(sharded_suggest, mesh=mesh,
                    n_EI_candidates=n_EI_candidates)
     base_early_stop = fmin_kwargs.pop("early_stop_fn", None)
@@ -149,11 +158,17 @@ def run_driver(fn, space, store_root: str, max_evals: int, mesh=None,
 
 def run_worker(store_root: str, exp_key: str = "default", **worker_kwargs):
     """Worker role: evaluate trials from the store at ``store_root`` until
-    idle (:class:`~.filestore.FileWorker`); returns the trials done."""
-    from .filestore import FileWorker
-
+    idle; returns the trials done.  A service URL runs a
+    :class:`~.netstore.NetWorker`, a path a
+    :class:`~.filestore.FileWorker`."""
     if _is_service_url(store_root):
-        raise NotImplementedError(_NOT_PORTED.format(what="run_worker"))
-    n = FileWorker(store_root, exp_key=exp_key, **worker_kwargs).run()
+        from .netstore import NetWorker
+
+        worker = NetWorker(store_root, exp_key=exp_key, **worker_kwargs)
+    else:
+        from .filestore import FileWorker
+
+        worker = FileWorker(store_root, exp_key=exp_key, **worker_kwargs)
+    n = worker.run()
     logger.info("multihost worker done: %d trials", n)
     return n

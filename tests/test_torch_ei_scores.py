@@ -143,3 +143,74 @@ def test_cuda_tensor_never_falls_back(monkeypatch, available, tmp_path):
     assert ei_mod.ei_scores.launches == launches
     assert ei_mod.ei_scores.launches_by == by
 
+
+
+def test_concurrent_first_builds_compile_each_source_once(monkeypatch,
+                                                           tmp_path):
+    """Threads that reach ``build()`` together compile each source once:
+    the later ones wait on the build lock and find the libraries built.
+    ``nvcc`` and the loader are stubs; each stub compile takes long
+    enough for the threads to overlap."""
+    import os
+    import sys
+    import threading
+    import time
+
+    monkeypatch.setattr(ei_mod, "_libs", {})
+    monkeypatch.setattr(ei_mod, "_BUILD_DIR", tmp_path)
+    compiled, outs = [], []
+
+    class _Proc:
+        returncode = 0
+
+        def __init__(self, out):
+            self.out = out
+
+        def communicate(self):
+            time.sleep(0.2)
+            with open(self.out, "wb") as f:
+                f.write(b"lib")
+            return "stub nvcc", None
+
+    def compile_stub(source, out):
+        compiled.append(source.name)
+        outs.append(out.name)
+        return _Proc(out)
+
+    monkeypatch.setattr(ei_mod, "compile_library", compile_stub)
+    monkeypatch.setattr(ei_mod, "load_library",
+                        lambda path, entries: ("loaded", path.name))
+    n_threads = 8
+    barrier = threading.Barrier(n_threads)
+    results, errors = [], []
+
+    def run():
+        try:
+            barrier.wait(timeout=10)
+            results.append(ei_mod.build())
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run) for _ in range(n_threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert sorted(compiled) == sorted(p.name for p in ei_mod._SOURCES.values())
+    # The temporary files are named by process and thread.
+    idents = {t.ident for t in threads}
+    assert all(any(f".{os.getpid()}.{i}." in o for i in idents) for o in outs)
+    assert set(ei_mod._libs) == set(ei_mod._SOURCES)
+    paths = [{k: v[0] for k, v in r.items()} for r in results]
+    assert all(p == paths[0] for p in paths)
+    # One build compiled (seconds > 0); every other found the libraries.
+    assert sorted(s == 0.0 for r in results for _, s in r.values()) \
+        == [False] * len(ei_mod._SOURCES) \
+        + [True] * (n_threads - 1) * len(ei_mod._SOURCES)
+

@@ -77,11 +77,16 @@ def test_imports_with_jax_blocked():
         "import hyperopt_tpu_torch.parallel.multihost\n"
         "import hyperopt_tpu_torch.obs.timeseries\n"
         "import hyperopt_tpu_torch.obs.slo, hyperopt_tpu_torch.obs.export\n"
+        "import hyperopt_tpu_torch.wire, hyperopt_tpu_torch.parallel.netstore\n"
+        "import hyperopt_tpu_torch.service\n"
+        "import hyperopt_tpu_torch.service.tenancy\n"
+        "import hyperopt_tpu_torch.service.cluster\n"
         "sys.path.insert(0, 'tests_torch_cuda')\n"
         "import conftest, test_torch_cuda_device, test_torch_cuda_ei_scores\n"
         "import test_torch_cuda_fleet, test_torch_cuda_obs\n"
         "import test_torch_cuda_pipeline, test_torch_cuda_tpe_rest\n"
         "import test_torch_cuda_backends, test_torch_cuda_dispatch\n"
+        "import test_torch_cuda_netstore\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hyperopt_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "assert 'matplotlib' not in sys.modules\n"

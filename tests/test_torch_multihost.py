@@ -1,12 +1,13 @@
 """The PyTorch port's multi-process glue against hyperopt_tpu's.
 
-Mirrors ``tests/test_multihost.py`` without its network-store cases:
-``initialize()`` brings up a world-1 gloo group and its ``(dp, sp)`` mesh
-on the CPU (in this process, and over TCP in a process of its own), the
-driver and worker roles run as real processes over a shared file store, a
-service URL raises ``NotImplementedError`` (the netstore slice), and a
-mesh of more than one rank handed to ``run_driver`` raises ``ValueError``
-(two gloo ranks).
+Mirrors ``tests/test_multihost.py``: ``initialize()`` brings up a
+world-1 gloo group and its ``(dp, sp)`` mesh on the CPU (in this process,
+and over TCP in a process of its own), the driver and worker roles run as
+real processes over a shared file store, a service URL routes both roles
+through the network store (``NetTrials``/``NetWorker``; the exchange
+passes the ``rpc.send`` fault point; a driver and a worker drain a run
+over a ``StoreServer``), and a mesh of more than one rank handed to
+``run_driver`` raises ``ValueError`` (two gloo ranks).
 """
 
 import os
@@ -22,8 +23,9 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from hyperopt_tpu_torch import dispatch, hp
-from hyperopt_tpu_torch.parallel import FileTrials, FileWorker, multihost
+from hyperopt_tpu_torch import JOB_STATE_DONE, dispatch, hp
+from hyperopt_tpu_torch.parallel import (FileTrials, FileWorker, NetTrials,
+                                         multihost)
 
 ROOT = Path(__file__).resolve().parent.parent
 CPU = "cpu"
@@ -219,11 +221,96 @@ class TestServiceUrl:
         assert not multihost._is_service_url("gcs/exp")
 
     @pytest.mark.parametrize("role", ["driver", "worker"])
-    def test_url_is_the_netstore_slice(self, role):
-        with pytest.raises(NotImplementedError, match="netstore slice"):
-            if role == "driver":
+    def test_url_routes_to_the_network_store(self, role, monkeypatch):
+        """A URL store_root builds the network store's client (with the
+        driver's ``token`` and ``retries``), a path the file store's."""
+        from hyperopt_tpu_torch.parallel import filestore, netstore
+
+        created = []
+
+        class _Stop(Exception):
+            pass
+
+        def fake(kind):
+            def make(root, exp_key="default", **kw):
+                created.append((kind, root, exp_key, kw))
+                raise _Stop
+            return make
+
+        monkeypatch.setattr(netstore, "NetTrials", fake("net"))
+        monkeypatch.setattr(netstore, "NetWorker", fake("net"))
+        monkeypatch.setattr(filestore, "FileTrials", fake("file"))
+        monkeypatch.setattr(filestore, "FileWorker", fake("file"))
+        for root in ("http://127.0.0.1:9/", "/mnt/shared/exp"):
+            with pytest.raises(_Stop):
+                if role == "driver":
+                    multihost.run_driver(_objective, _space(),
+                                         store_root=root, exp_key="mh",
+                                         max_evals=4, token="tok",
+                                         retries=2)
+                else:
+                    multihost.run_worker(root, exp_key="mh", token="tok")
+        if role == "driver":
+            assert created == [
+                ("net", "http://127.0.0.1:9/", "mh",
+                 {"token": "tok", "retries": 2}),
+                ("file", "/mnt/shared/exp", "mh", {})]
+        else:
+            assert created == [
+                ("net", "http://127.0.0.1:9/", "mh", {"token": "tok"}),
+                ("file", "/mnt/shared/exp", "mh", {"token": "tok"})]
+
+    def test_exchange_crosses_rpc_send_fault_point(self):
+        """The netstore-routed driver passes the ``rpc.send`` fault point
+        before any socket IO: with it armed at probability 1 and no
+        retries, the first exchange verb dies with the injected fault as
+        the cause."""
+        from hyperopt_tpu_torch import faults
+        from hyperopt_tpu_torch.exceptions import (InjectedFault,
+                                                   NetstoreUnavailable)
+
+        faults.configure({"rpc.send": 1.0})
+        try:
+            with pytest.raises(NetstoreUnavailable) as ei:
                 multihost.run_driver(_objective, _space(),
                                      store_root="http://127.0.0.1:9/",
-                                     max_evals=4)
-            else:
-                multihost.run_worker("https://127.0.0.1:9", exp_key="mh")
+                                     max_evals=4, retries=0,
+                                     show_progressbar=False, verbose=False)
+            assert isinstance(ei.value.__cause__, InjectedFault)
+        finally:
+            faults.clear()
+
+    def test_driver_and_worker_over_a_store_server(self, tmp_path,
+                                                   own_world):
+        """``run_driver`` on a token-protected ``StoreServer`` URL with a
+        ``run_worker`` thread: every trial DONE, evaluated once, by the
+        worker."""
+        from hyperopt_tpu_torch.parallel import StoreServer
+
+        srv = StoreServer(str(tmp_path / "store"), token="tok")
+        srv.start()
+        out = {}
+
+        def worker():
+            out["n"] = multihost.run_worker(srv.url, exp_key="mh",
+                                            token="tok", poll_interval=0.01,
+                                            reserve_timeout=3.0)
+
+        t = threading.Thread(target=worker)
+        t.start()
+        try:
+            mesh = multihost.initialize(device=CPU)
+            best = multihost.run_driver(
+                _objective, _space(), store_root=srv.url, exp_key="mh",
+                max_evals=24, mesh=mesh, n_EI_candidates=64, token="tok",
+                rstate=np.random.default_rng(0), device=CPU,
+                show_progressbar=False)
+        finally:
+            t.join(timeout=60)
+            nt = NetTrials(srv.url, exp_key="mh", token="tok")
+            srv.shutdown()
+        assert not t.is_alive() and out["n"] == 24
+        assert "x" in best
+        assert len(nt) == 24 and len({d["tid"] for d in nt}) == 24
+        assert all(d["state"] == JOB_STATE_DONE and d["owner"] for d in nt)
+        assert len({d["owner"] for d in nt}) == 1
