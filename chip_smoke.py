@@ -189,7 +189,28 @@ Phases, each fatal on failure:
                tid claimed twice, every worker exits 0, K1 once per
                post-startup suggest; (f) ``GET /metrics`` negotiated as
                OpenMetrics passes the strict parser.
-14. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
+14. service   the service tier at the same width: (a) a ``ServiceServer``
+               in a thread (a table of 8 tenants, ``fsync="always"``, its
+               WAL in a temporary directory, a 200 ms cohort window); each
+               tenant publishes the flagship domain on cuda and inserts its
+               own seeded 1,000-trial history in binary frames; (b) host ms
+               of a server-side suggest on the RAM store against the
+               in-process one (the gate detached), medians of 10 in two
+               turns: rows equal bit for bit, one K1 launch each; (c) the
+               8 tenants suggest concurrently, three windows in a row: each
+               row equals its solo in-process row bit for bit, one fleet
+               dispatch and one K1 launch (over 31·8 columns) per window;
+               a 9th request with ``gamma=`` in a 4th window takes the solo
+               path; (d) the server stops without a snapshot and a new one
+               recovers the same ``state_bytes()`` from the WAL with no EI
+               launch, then serves ``tpe_bf16`` and ``tpe_mxu`` by name
+               (K2, K3 once each); (e) a ``Router`` over 2 ``ShardServer``
+               primaries with a replica each: routed suggests equal the
+               in-process ones, ``shard_add`` moves a store whose
+               ``state_bytes()`` and next suggest are unchanged, and a
+               primary shut down is failed over to its replica with no
+               trial lost.
+15. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
                and every collected test passed.
 
 Prints the card's name and power limit first and again before the
@@ -211,6 +232,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from functools import partial
 from xml.etree import ElementTree
@@ -352,6 +374,12 @@ NET_TOKEN = "chip-smoke-token"
 # The heads the netstore phase registers to serve K2 and K3 by name.
 NET_EXTRA_HEADS = {"tpe_bf16": dict(ei_precision="bf16"),
                    "tpe_mxu": dict(ei_impl="mxu")}
+# service: tenants of the service phase, the cohort window (ms), windows
+# in a row, and the seeds of its server-side proposals.
+SVC_TENANTS = 8
+SVC_WINDOW_MS = 200.0
+SVC_WINDOWS = 3
+SVC_SEED = 300
 # Kernel symbol of each lowering, as the profiler names it.
 KERNEL_SYMBOLS = {"f32": "ei_scores_kernel<false>",
                   "bf16": "ei_scores_kernel<true>",
@@ -3450,6 +3478,355 @@ def phase_netstore(dev):
     return tally.rows()
 
 
+def phase_service(dev):
+    """The service tier at full width, checks (a) to (e).  Returns
+    ``{lowering: (eager launches, 0, 0)}`` over the phase's server-side
+    suggests, cohort windows and routed suggests."""
+    from hyperopt_tpu_torch import backends, wire
+    from hyperopt_tpu_torch.backends import contract
+    from hyperopt_tpu_torch.parallel import NetTrials, RouterTrials
+    from hyperopt_tpu_torch.service import (ServiceServer, ShardServer,
+                                            Tenant, TenantTable)
+    from hyperopt_tpu_torch.service import wal as wal_mod
+    from hyperopt_tpu_torch.service.cluster import HashRing
+    from hyperopt_tpu_torch.service.router import Router
+
+    t_phase = time.perf_counter()
+    metrics.set_enabled(True)
+    space = flagship_space()
+    cs = compile_space(space)
+    ek = "flagship"
+    tally = Tally()
+    root = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    wal_dir = os.path.join(root, "wal")
+    table = TenantTable([Tenant(f"tenant{i}", f"{NET_TOKEN}-{i}")
+                         for i in range(SVC_TENANTS)])
+    mk = partial(ServiceServer, wal_dir, tenants=table, fsync="always",
+                 cohort_window_ms=SVC_WINDOW_MS)
+    for name, kw in NET_EXTRA_HEADS.items():
+        backends.register_backend(name, partial(tpe.suggest, **kw),
+                                  replace=True)
+    prev_mode = wire.mode()
+    servers = []
+    ids = [N_HISTORY]
+    kw = dict(n_EI_candidates=N_CAND)
+    try:
+        # (a) set-up: 8 tenants, each its flagship domain on the card and
+        # its own seeded 1,000-trial history, in binary frames.
+        wire.set_mode("binary")
+        srv = mk()
+        srv.start()
+        servers.append(srv)
+        t0 = time.perf_counter()
+        tenants = []
+        for i in range(SVC_TENANTS):
+            nt = NetTrials(srv.url, exp_key=ek, token=f"{NET_TOKEN}-{i}",
+                           timeout=120.0)
+            domain = base.Domain(objective, space)
+            domain.cs.device = dev
+            nt.save_domain(domain)
+            docs = [dict(d, exp_key=ek)
+                    for d in synthetic_trials(cs, N_HISTORY, 40 + i, dev)]
+            nt.insert_trial_docs(docs)
+            local = base.trials_from_docs(copy.deepcopy(docs), exp_key=ek)
+            tenants.append((nt, domain, local))
+        set_s = time.perf_counter() - t0
+        n_stores = len(srv._trials)
+        if n_stores != SVC_TENANTS or any(
+                len(st._by_tid) != N_HISTORY for st in srv._trials.values()):
+            fail(f"service (a): {n_stores} stores, sizes "
+                 f"{[len(st._by_tid) for st in srv._trials.values()]}")
+        print(f"service (a): ServiceServer on {srv.url} (tenant table of "
+              f"{SVC_TENANTS}, fsync=always, WAL in {wal_dir}, cohort "
+              f"window {SVC_WINDOW_MS:.0f} ms): {SVC_TENANTS} tenants "
+              f"published the flagship domain on {dev} and inserted "
+              f"{N_HISTORY} docs each in binary frames in {set_s:.2f} s")
+
+        # (b) the RAM store's round trip: a server-side suggest against
+        # the in-process one on the same history, medians of 10 in two
+        # turns, the gate detached so that no window is waited out.
+        nt, domain, local = tenants[0]
+        store = srv._trials[("tenant0", ek)]
+        scs = srv._domain_for(store).cs
+        ms = {"server": [], "local": [], "verb": [], "history": []}
+        real_dispatch = srv._dispatch
+
+        def timed_verb(*a, **k):
+            t1 = time.perf_counter()
+            try:
+                return real_dispatch(*a, **k)
+            finally:
+                ms["verb"].append((time.perf_counter() - t1) * 1e3)
+
+        gate, srv._cohort_gate = srv._cohort_gate, None
+        got, want = [], []
+        try:
+            for turn in range(2):
+                seeds = [SVC_SEED + 10 * turn + i for i in range(NET_TIMED)]
+                srv._dispatch = timed_verb
+                try:
+                    ms["server"] += tally.counted("f32", lambda: host_ms(
+                        lambda i: got.append(nt.suggest(
+                            seeds[i], new_ids=ids, insert=False, **kw))))
+                finally:
+                    srv._dispatch = real_dispatch
+                k_b = ei_mod.ei_scores.launches_by
+                if k_b != {k: NET_TIMED * (k == "f32") for k in k_b}:
+                    fail(f"service (b): K1 launches {k_b} for {NET_TIMED} "
+                         f"server-side suggests")
+                ms["local"] += host_ms(lambda i: want.append(tpe.suggest(
+                    ids, domain, local, seeds[i], **kw)))
+                ms["history"] += host_ms(lambda i: store.history(scs))
+        finally:
+            srv._cohort_gate = gate
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            fail(f"service (b): server-side rows differ from the "
+                 f"in-process rows at calls {bad}")
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        print(f"service (b): host ms, medians of {NET_TIMED} x 2 turns: "
+              f"server-side suggest round trip on the RAM store="
+              f"{med['server']:.3f} (the server's verb {med['verb']:.3f}) "
+              f"in-process suggest={med['local']:.3f} (wire and lock "
+              f"{med['server'] - med['local']:+.3f}); the store's columnar "
+              f"history={med['history']:.3f}; {2 * NET_TIMED} rows equal "
+              f"bit for bit, one K1 launch each (the file store of the "
+              f"netstore phase: 86.7-117.9 against 13.4-18.9 ms)")
+        print("service (b) json: " + json.dumps(
+            {"server_suggest_ms": med["server"],
+             "server_verb_ms": med["verb"],
+             "inprocess_suggest_ms": med["local"],
+             "store_history_ms": med["history"], "n_docs": N_HISTORY,
+             "n_timed": NET_TIMED, "turns": 2}))
+
+        # (c) the cohort gate: the 8 tenants suggest concurrently, three
+        # windows in a row; then a window where a 9th request carries
+        # gamma= and must take the solo path.
+        solo = [[tpe.suggest([N_HISTORY + w], t[1], t[2],
+                             SVC_SEED + 100 * w + i, **kw)
+                 for i, t in enumerate(tenants)]
+                for w in range(SVC_WINDOWS + 1)]
+
+        def window(w, extra=None):
+            out = [None] * (SVC_TENANTS + (extra is not None))
+
+            def call(i):
+                if i == SVC_TENANTS:
+                    out[i] = extra()
+                    return
+                out[i] = tenants[i][0].suggest(
+                    SVC_SEED + 100 * w + i, new_ids=[N_HISTORY + w],
+                    insert=False, **kw)
+
+            ths = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(out))]
+            t1 = time.perf_counter()
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=300)
+            if any(th.is_alive() for th in ths):
+                fail(f"service (c): window {w} hung")
+            return out, (time.perf_counter() - t1) * 1e3
+
+        d0 = fleet.dispatches
+        win_ms = []
+        for w in range(SVC_WINDOWS):
+            rows, wms = tally.counted("f32", lambda: window(w))
+            win_ms.append(wms)
+            k_c = dict(ei_mod.ei_scores.launches_by)
+            if rows != solo[w]:
+                bad = [i for i, (a, b) in enumerate(zip(rows, solo[w]))
+                       if a != b]
+                fail(f"service (c): window {w}: tenants {bad}'s rows differ "
+                     f"from their solo rows")
+            if k_c != {k: int(k == "f32") for k in k_c}:
+                fail(f"service (c): window {w}: EI launches {k_c}, wanted "
+                     f"one K1")
+        n_disp = fleet.dispatches - d0
+        tier = fleet.cohort_tier_last
+        if n_disp != SVC_WINDOWS:
+            fail(f"service (c): {n_disp} fleet dispatches for "
+                 f"{SVC_WINDOWS} windows")
+        # the gamma request: a second store of tenant 0 with the same
+        # history, in the same window as the 8 tenants.
+        gt = NetTrials(srv.url, exp_key=ek + "-gamma",
+                       token=f"{NET_TOKEN}-0", timeout=120.0)
+        gt.save_domain(tenants[0][1])
+        gdocs = [dict(d, exp_key=ek + "-gamma") for d in tenants[0][2]]
+        gt.insert_trial_docs(copy.deepcopy(gdocs))
+        glocal = base.trials_from_docs(copy.deepcopy(gdocs),
+                                       exp_key=ek + "-gamma")
+        w = SVC_WINDOWS
+        gwant = tpe.suggest([N_HISTORY + w], tenants[0][1], glocal, 77,
+                            gamma=0.5, **kw)
+        d1 = fleet.dispatches
+        rows, _ = tally.counted("f32", lambda: window(w, lambda: gt.suggest(
+            77, new_ids=[N_HISTORY + w], insert=False, gamma=0.5, **kw)))
+        k_g = dict(ei_mod.ei_scores.launches_by)
+        if rows[:SVC_TENANTS] != solo[w] or rows[SVC_TENANTS] != gwant:
+            fail("service (c): the gamma window's rows differ from the "
+                 "solo rows")
+        if fleet.dispatches - d1 != 1 or k_g != {
+                k: 2 * (k == "f32") for k in k_g}:
+            fail(f"service (c): the gamma window: "
+                 f"{fleet.dispatches - d1} dispatches, EI launches {k_g}")
+        print(f"service (c): {SVC_WINDOWS} windows of {SVC_TENANTS} "
+              f"concurrent tenants: each tenant's rows equal its solo "
+              f"in-process rows bit for bit; fleet.dispatches +{n_disp}, "
+              f"K1 once per window over 31x{tier} columns (lane tier "
+              f"{tier}); ms per window (wall, window included) "
+              f"{[round(x, 3) for x in win_ms]}; a 9th request with "
+              f"gamma=0.5 in a 4th window took the solo path (1 dispatch, "
+              f"2 K1 launches), its row equal to the in-process one")
+
+        # (d) crash and recovery: the server stops without a snapshot; a
+        # new one on the same WAL directory rebuilds the same bytes and
+        # launches no kernel.  Then K2 and K3 served by name.
+        live = srv.state_bytes()
+        srv.shutdown()
+        servers.remove(srv)
+        info = wal_mod.inspect(wal_dir)
+        d2 = fleet.dispatches
+        t1 = time.perf_counter()
+        srv = tally.counted("f32", mk)
+        rec_s = time.perf_counter() - t1
+        servers.append(srv)
+        k_d = dict(ei_mod.ei_scores.launches_by)
+        if srv.state_bytes() != live:
+            fail("service (d): the recovered state_bytes() differ")
+        if sum(k_d.values()) or fleet.dispatches != d2:
+            fail(f"service (d): recovery launched {k_d}, dispatched "
+                 f"{fleet.dispatches - d2}")
+        srv.start()
+        nt = NetTrials(srv.url, exp_key=ek, token=f"{NET_TOKEN}-0",
+                       timeout=120.0)
+        table_ = contract.server_table()
+        by_name = {}
+        for name in NET_EXTRA_HEADS:
+            got1 = tally.counted("f32", lambda: nt.suggest(
+                NET_HEAD_SEED, new_ids=ids, insert=False, algo=name, **kw))
+            by = dict(ei_mod.ei_scores.launches_by)
+            low = {"tpe_bf16": "bf16", "tpe_mxu": "mxu"}[name]
+            want1 = table_[name](ids, tenants[0][1], tenants[0][2],
+                                 NET_HEAD_SEED, **kw)
+            if got1 != want1 or by != {k: int(k == low) for k in by}:
+                fail(f"service (d): {name}: EI launches {by}, rows equal "
+                     f"{got1 == want1}")
+            by_name[name] = by[low]
+        print(f"service (d): stopped without a snapshot "
+              f"({info['records']} WAL records, {info['wal_bytes']} bytes); "
+              f"a new ServiceServer on the WAL recovered the same "
+              f"state_bytes() ({len(live)} bytes) in {rec_s:.2f} s with no "
+              f"EI launch and no dispatch; tpe_bf16 and tpe_mxu served by "
+              f"name after it: {by_name}, rows equal the in-process ones")
+        srv.shutdown()
+        servers.remove(srv)
+
+        # (e) the fleet: a Router over 2 ShardServer primaries with a
+        # replica each; routed suggests, shard_add with a moved store,
+        # and a primary shut down under the router.
+        ring2, ring3 = HashRing(["s0", "s1"]), HashRing(["s0", "s1", "s2"])
+        keys = [f"fleet{i}" for i in range(200)]
+        k0 = next(k for k in keys if ring2.owner(None, k) == "s0"
+                  and ring3.owner(None, k) == "s0")
+        k1 = next(k for k in keys if ring2.owner(None, k) == "s1"
+                  and ring3.owner(None, k) == "s2")
+        shard = partial(ShardServer, token=NET_TOKEN, fsync="always")
+        entries = {}
+        prims = {}
+        for sid in ("s0", "s1"):
+            rep = shard(os.path.join(root, sid + "r"), role="replica")
+            rep.start()
+            prim = shard(os.path.join(root, sid + "p"), role="primary")
+            prim.start()
+            prim.attach_replica(rep.url)
+            servers += [rep, prim]
+            prims[sid] = prim
+            entries[sid] = {"primary": prim.url, "replica": rep.url}
+        router = Router(entries, token=NET_TOKEN, retries=1, backoff=0.01)
+        router.start()
+        fleet_ok = []
+        try:
+            routed = {}
+            for j, k in enumerate((k0, k1)):
+                rt = RouterTrials(router.url, exp_key=k, token=NET_TOKEN,
+                                  timeout=120.0, map_refresh_s=0.0)
+                dom = base.Domain(objective, space)
+                dom.cs.device = dev
+                rt.save_domain(dom)
+                docs = [dict(d, exp_key=k)
+                        for d in synthetic_trials(cs, N_HISTORY, 60 + j,
+                                                  dev)]
+                rt.insert_trial_docs(docs)
+                loc = base.trials_from_docs(copy.deepcopy(docs), exp_key=k)
+                routed[k] = (rt, dom, loc)
+
+            def routed_equal(k, seed, what):
+                rt, dom, loc = routed[k]
+                got1 = tally.counted("f32", lambda: rt.suggest(
+                    seed, new_ids=ids, insert=False, **kw))
+                by = dict(ei_mod.ei_scores.launches_by)
+                if got1 != tpe.suggest(ids, dom, loc, seed, **kw) or \
+                        by != {x: int(x == "f32") for x in by}:
+                    fail(f"service (e): {what}: routed rows of {k} differ "
+                         f"or EI launches {by}")
+                fleet_ok.append(what)
+                return rt.shard_id
+
+            owners = [routed_equal(k, 5, "routed") for k in (k0, k1)]
+            if owners != ["s0", "s1"]:
+                fail(f"service (e): owners {owners}")
+            before = prims["s1"]._trials[(None, k1)].state_bytes()
+            new = shard(os.path.join(root, "s2p"), role="primary")
+            new.start()
+            servers.append(new)
+            t1 = time.perf_counter()
+            out = router._shard_add_verb({"shard": "s2", "url": new.url})
+            add_s = time.perf_counter() - t1
+            moved = new._trials.get((None, k1))
+            if (out["migrated"] < 1 or moved is None
+                    or moved.state_bytes() != before):
+                fail(f"service (e): shard_add {out}; moved store "
+                     f"{'missing' if moved is None else 'differs'}")
+            if routed_equal(k1, 6, "moved") != "s2":
+                fail("service (e): the moved store's client did not "
+                     "re-place onto s2")
+            for sh in prims["s0"]._shippers:
+                if not sh.flush(timeout=60.0):
+                    fail("service (e): s0's replica never caught up")
+            prims["s0"].shutdown()
+            f0 = net_counter("router.failovers")
+            routed_equal(k0, 7, "failover")
+            rt = routed[k0][0]
+            rt.refresh()
+            if (net_counter("router.failovers") != f0 + 1
+                    or rt._rpc.url != entries["s0"]["replica"]
+                    or sorted(d["tid"] for d in rt) != list(
+                        range(N_HISTORY))):
+                fail(f"service (e): failover: {net_counter('router.failovers') - f0} "
+                     f"promotions, client on {rt._rpc.url}, {len(rt)} docs")
+            print(f"service (e): Router over 2 ShardServer primaries with "
+                  f"a replica each: routed suggests of {k0} (s0) and {k1} "
+                  f"(s1) equal the in-process rows; shard_add s2 migrated "
+                  f"{out['migrated']} store(s) in {add_s:.2f} s, {k1}'s "
+                  f"state_bytes() unchanged on s2 and its next suggest "
+                  f"equal; s0's primary shut down, the router promoted its "
+                  f"replica and the next suggest of {k0} is equal, "
+                  f"{N_HISTORY} trials kept ({len(fleet_ok)} routed "
+                  f"suggests, one K1 launch each)")
+        finally:
+            router.shutdown()
+    finally:
+        wire.set_mode(prev_mode)
+        for s_ in servers:
+            s_.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"service: EI wrapper over the phase's counted runs: eager "
+          f"launches {tally.launches}; {time.perf_counter() - t_phase:.1f} s")
+    return tally.rows()
+
+
 def phase_card_tests():
     """``python -m pytest tests_torch_cuda`` in a subprocess: it must exit
     0 with every collected test passed."""
@@ -3501,6 +3878,7 @@ def main():
     heads_launches, heads_err = phase_heads(dev)
     dispatch_launches = phase_dispatch(dev)
     netstore_launches = phase_netstore(dev)
+    service_launches = phase_service(dev)
     phase_card_tests()
     print(f"total seconds {time.perf_counter() - t0:.1f}")
     rows = []
@@ -3510,9 +3888,10 @@ def main():
         # device_mode's, the fleet's, obs's and tpe_rest's eager warm-up
         # steps, the cohort dispatches, obs's hosted runs, the pipeline
         # phase's runs, tpe_rest's hosted runs, the heads phase's
-        # hosted runs, the dispatch phase's runs (K1 only) and the
-        # netstore phase's server-side suggests and driven run.  A capture
-        # records
+        # hosted runs, the dispatch phase's runs (K1 only), the
+        # netstore phase's server-side suggests and driven run, and the
+        # service phase's suggests, cohort windows and routed suggests.
+        # A capture records
         # the launch into its graph without running it (graph_recorded);
         # graph_replays counts replays of graphs that hold the kernel, one
         # kernel run each (for all lanes) by the profiler's count in
@@ -3527,7 +3906,8 @@ def main():
                                         rest_launches[low],
                                         heads_launches[low],
                                         dispatch_launches[low],
-                                        netstore_launches[low]))
+                                        netstore_launches[low],
+                                        service_launches[low]))
         n = (liar_launches[low] + (fmin_launches if low == "f32" else 0)
              + dev_launches)
         k = kernels[low]

@@ -51,6 +51,13 @@ def coarse_utcnow() -> float:
     return float(int(time.time()))
 
 
+#: Granularity of :func:`coarse_utcnow`: a staleness check that compares a
+#: coarse ``book_time``/``refresh_time`` against a clock allows this much
+#: slop, or a doc booked late in a wall second looks up to a second older
+#: than it is.
+COARSE_CLOCK_SLOP_S = 1.0
+
+
 def validate_trial_docs(docs):
     for doc in docs:
         for k in _TRIAL_KEYS:

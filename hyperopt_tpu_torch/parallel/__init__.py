@@ -15,12 +15,18 @@ Counterpart of ``hyperopt_tpu/parallel``, for the parts ported so far:
   durable store on a shared directory, evaluated by worker processes);
 * :class:`StoreServer`, :class:`NetTrials` and :class:`NetWorker`
   (:mod:`.netstore`: the file store served over HTTP, with server-side
-  suggest);
+  suggest), and :class:`RouterTrials` (a ``NetTrials`` placed through a
+  fleet router, ``service/router.py``);
 * :mod:`.multihost` (driver and worker roles over either store).
 """
 
 from .filestore import FileTrials, FileWorker  # noqa: F401
-from .netstore import NetTrials, NetWorker, StoreServer  # noqa: F401
+from .netstore import (  # noqa: F401
+    NetTrials,
+    NetWorker,
+    RouterTrials,
+    StoreServer,
+)
 from .pool import CompletionQueueEvaluator, PoolTrials  # noqa: F401
 from .sharded import (  # noqa: F401
     ShardedTpeKernel,
@@ -30,6 +36,6 @@ from .sharded import (  # noqa: F401
 )
 
 __all__ = ["PoolTrials", "CompletionQueueEvaluator", "FileTrials",
-           "FileWorker", "NetTrials", "NetWorker", "StoreServer",
+           "FileWorker", "NetTrials", "NetWorker", "RouterTrials", "StoreServer",
            "ShardedTpeKernel", "default_mesh", "multi_start_suggest",
            "sharded_suggest"]

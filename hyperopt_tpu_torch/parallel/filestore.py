@@ -53,6 +53,7 @@ from ..base import (
     JOB_STATE_ERROR,
     JOB_STATE_NEW,
     JOB_STATE_RUNNING,
+    COARSE_CLOCK_SLOP_S,
     Ctrl,
     Trials,
     coarse_utcnow,
@@ -61,10 +62,6 @@ from ..base import (
 logger = logging.getLogger(__name__)
 
 _DOMAIN_FILE = "domain.pkl"
-#: Slop of ``coarse_utcnow``'s whole-second stamps in the staleness test:
-#: a doc booked late in a wall second looks up to a second older than it
-#: is.
-COARSE_CLOCK_SLOP_S = 1.0
 
 
 def _atomic_write_json(path: str, obj) -> None:

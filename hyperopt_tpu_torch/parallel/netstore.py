@@ -22,6 +22,16 @@ Design: serialize, don't re-implement.
   :func:`server_suggest` is an ``fmin`` algo that asks the server.
 * :class:`NetWorker` is a :class:`~.filestore.FileWorker` bound to a
   ``NetTrials``.
+* :class:`RouterTrials` is a ``NetTrials`` placed through a fleet router
+  (``service/router.py``): it pulls the shard map and talks to the
+  owning shard directly (:class:`_RoutedRpc`).
+
+The server also keeps what the service tier's RAM store
+(``service.store.MemTrials``) needs: the per-store migration verbs
+(``store_fence``, ``store_import``, ``store_export``), the ``stores``
+inventory, the typed ``ShardFenced`` refusal (HTTP 409), delta reads
+through the store's ``export_docs``/``docs_since``, and the cohort gate's
+``_fleet_rows`` on the ``suggest`` verb.
 
 Wire: JSON verbs over HTTP POST, or the binary frame for the bulk-doc
 verbs (``wire.set_mode``), over pooled keep-alive HTTP/1.1 sockets
@@ -39,8 +49,9 @@ quotas and store subtree.  Without either the server is open.
 The JAX package's environment switches are arguments here:
 ``StoreServer(token=, idem_cap=, idem_ttl_s=, read_dispatch=)``,
 ``NetTrials(token=, retries=, backoff=, backpressure_retries=,
-reserve_wait_s=)``, :func:`set_rpc_pool_size`, ``costs.arm()`` and the
-CLI's ``--token`` and ``--flight-dir``.
+reserve_wait_s=)``, ``RouterTrials(map_refresh_s=)``,
+``NetWorker(faults=)``, :func:`set_rpc_pool_size`, ``costs.arm()`` and the
+CLI's ``--token``, ``--flight-dir`` and ``--faults``.
 
 CLI (the console script ``hyperopt-tpu-torch-netstore``, also
 ``python -m hyperopt_tpu_torch.parallel.netstore``): ``--serve --root D``
@@ -69,8 +80,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.error import URLError
 from urllib.parse import urlsplit
 
+import numpy as np
+
 from .filestore import FileTrials, FileWorker, _pickler
-from ..base import JOB_STATE_RUNNING, Trials
+from ..base import JOB_STATE_RUNNING, Trials, docs_from_samples
 from ..exceptions import (Backpressure, InjectedFault, NetstoreUnavailable,
                           QuotaExceeded, ShardFenced)
 from ..obs import bundle as _obs_bundle
@@ -366,12 +379,16 @@ class StoreServer:
     #: mutating verb.  The same catalog as the JAX package's.
     _READONLY_VERBS = frozenset({
         "metrics", "health", "bundle", "docs", "fetch_since",
-        "get_domain", "att_get", "att_keys"})
+        "get_domain", "att_get", "att_keys", "stores", "store_export"})
 
     #: Verbs whose success may make a claim (or a claims-quota slot)
     #: available: each wakes the exp_key's parked long-poll reserves.
+    #: ``store_fence`` wakes them for the opposite reason: a parked
+    #: claimant on a store that just fenced for migration must surface
+    #: the typed redirect now, not doze out its wait budget.
     _LONGPOLL_WAKE = frozenset({
-        "insert_docs", "suggest", "requeue_stale", "write_result"})
+        "insert_docs", "suggest", "requeue_stale", "write_result",
+        "store_fence"})
 
     #: Verbs that ADMIT new work into the system (docs inserted, ids
     #: allocated, proposals computed).  These — and only these — are
@@ -574,6 +591,13 @@ class StoreServer:
                         {"error": f"Backpressure: {e}",
                          "retry_after_s": e.retry_after_s}).encode()
                     code = 503
+                except ShardFenced as e:
+                    # Typed retriable redirect: the store/shard is mid-
+                    # cutover; the client should refresh its shard map
+                    # and re-place itself, not retry here.
+                    body = json.dumps(
+                        {"error": f"ShardFenced: {e}"}).encode()
+                    code = 409
                 except Exception as e:  # surface server faults to the client
                     body = json.dumps(
                         {"error": f"{type(e).__name__}: {e}"}).encode()
@@ -862,10 +886,10 @@ class StoreServer:
         except Exception as e:
             # Black-box the failing dispatch before the error surfaces
             # to the client (one boolean when the recorder is disarmed).
-            # A load shed is a deliberate steady-state answer under
-            # overload, not a crash: a backpressure storm must not spam
-            # flight bundles.
-            if not isinstance(e, Backpressure):
+            # Typed control-plane refusals (shed, fence) are deliberate
+            # steady-state answers under overload or cutover, not
+            # crashes: a backpressure storm must not spam flight bundles.
+            if not isinstance(e, (Backpressure, ShardFenced)):
                 _flight.on_crash("dispatch", e)
             raise
         finally:
@@ -959,8 +983,12 @@ class StoreServer:
                     continue
                 if exp_key is not None and ek != exp_key:
                     continue
-                ft.refresh()
-                docs = list(ft._dynamic_trials)
+                export = getattr(ft, "export_docs", None)
+                if export is not None:
+                    docs = export()
+                else:
+                    ft.refresh()
+                    docs = list(ft._dynamic_trials)
                 items.append((tn, ek, ft, docs,
                               getattr(ft, "_srv_last_algo", None)))
         reports = {}
@@ -1084,6 +1112,22 @@ class StoreServer:
                     "ttl_s": ttl}
         with self._lock:
             ft = self._store(req.get("exp_key", "default"), tenant=tenant)
+            if getattr(ft, "fenced", False) and verb not in (
+                    "store_fence", "store_import"):
+                _metrics.registry().counter("store.fenced").inc()
+                raise ShardFenced(
+                    f"store {req.get('exp_key', 'default')!r} is fenced "
+                    f"(migrating): refusing {verb!r}")
+            if verb == "store_fence":
+                ft.fence(drop=bool(req.get("drop")),
+                         lift=bool(req.get("lift")))
+                return {"ok": True, "dropped": bool(req.get("drop")),
+                        "lifted": bool(req.get("lift"))}
+            if verb == "store_import":
+                state = dict(req["state"])
+                state["fenced"] = False
+                ft.load_state(state)
+                return {"ok": True, "docs": len(state.get("docs", []))}
             if verb == "insert_docs":
                 self._charge_admission(tenant, len(req["docs"]))
                 return {"tids": ft._insert_trial_docs(req["docs"])}
@@ -1163,6 +1207,20 @@ class StoreServer:
             return {"bundle": _obs_bundle.collect_payload(
                 "verb", extra={"trigger": "verb",
                                "tenant": getattr(tenant, "name", None)})}
+        if verb == "stores":
+            # Control-plane inventory: every (tenant, exp_key) this
+            # server hosts with coarse sizes; the autoscaler's load
+            # signal and the per-store migration planner read this.
+            with self._lock:
+                items = [
+                    {"tenant": t, "exp_key": k,
+                     "docs": len(getattr(ft, "_by_tid", ()) or ()),
+                     "claims": len(getattr(ft, "_claims", ()) or ()),
+                     "fenced": bool(getattr(ft, "fenced", False))}
+                    for (t, k), ft in sorted(
+                        self._trials.items(),
+                        key=lambda kv: (kv[0][0] or "", kv[0][1]))]
+            return {"stores": items}
         exp_key = req.get("exp_key", "default")
         if not self._read_dispatch:
             with self._lock:
@@ -1175,16 +1233,46 @@ class StoreServer:
         """Store-backed read arms; ``ft`` resolves concurrency above
         (lock-free probe, or under the write lock in the A/B-off arm).
         """
+        if verb == "store_export":
+            # Migration read: the store's full canonical state, exactly
+            # what the receiving shard's ``store_import`` replays.  The
+            # one read a fenced store still answers: the fence is what
+            # makes this snapshot final.
+            fn = getattr(ft, "state_dict", None)
+            if fn is None:
+                raise ValueError("store_export requires a service store "
+                                 "(MemTrials)")
+            return {"state": fn()}
+        if getattr(ft, "fenced", False):
+            # A fenced store's documents are moving (or moved) away;
+            # serving a read here would hand the client a stale or empty
+            # view.  Same typed redirect as the mutating path.
+            _metrics.registry().counter("store.fenced").inc()
+            raise ShardFenced(
+                f"store {req.get('exp_key', 'default')!r} is fenced "
+                f"(migrating): refusing {verb!r}")
         if verb == "docs":
+            export = getattr(ft, "export_docs", None)
+            if export is not None:
+                return {"docs": export()}
             ft.refresh()
             return {"docs": ft._dynamic_trials}
         if verb == "fetch_since":
-            # Delta history pull.  The file store keeps no delta
-            # bookkeeping: it answers with the full list and a null
-            # cursor, and the client keeps using full fetches against it.
-            ft.refresh()
-            return {"docs": ft._dynamic_trials, "cursor": None,
-                    "full": True}
+            # Delta history pull: only rows touched since the client's
+            # cursor.  A store without delta bookkeeping (FileTrials)
+            # answers with the full list and a null cursor, and the
+            # client keeps using full fetches against it.
+            fn = getattr(ft, "docs_since", None)
+            if fn is None:
+                export = getattr(ft, "export_docs", None)
+                if export is not None:
+                    docs = export()
+                else:
+                    ft.refresh()
+                    docs = ft._dynamic_trials
+                return {"docs": docs, "cursor": None, "full": True}
+            docs, cursor, full = fn(req.get("cursor"))
+            return {"docs": docs, "cursor": cursor, "full": full}
         if verb == "get_domain":
             blob = ft.get_domain_blob()
             if blob is None:
@@ -1235,7 +1323,8 @@ class StoreServer:
             if verb == "suggest" and not (out or {}).get("inserted"):
                 return
             key = {"insert_docs": "tids", "suggest": "tids",
-                   "requeue_stale": "n", "write_result": "ok"}[verb]
+                   "requeue_stale": "n", "write_result": "ok",
+                   "store_fence": "ok"}[verb]
             if not (out or {}).get(key):
                 return
         with self._claim_gates_lock:
@@ -1339,7 +1428,14 @@ class StoreServer:
         :attr:`device_lock`.  Thin-client protocol: the driver only needs
         ``suggest`` (with insert), ``docs`` and the result verbs.
 
+        ``_fleet_rows`` carries proposal rows that the service's cohort
+        gate computed in one fleet dispatch, so this verb only packages
+        docs and runs no head.  A wire client supplying it merely
+        dictates its own proposals, the privilege ``insert_docs``
+        already grants, so it needs no trust boundary beyond the auth
+        gate.
         """
+        fleet_rows = req.pop("_fleet_rows", None)
         algo_name = req.get("algo", "tpe")
         # Memo for the health verb: which head last served this store
         # (its introspection hook is the one worth running).
@@ -1375,8 +1471,14 @@ class StoreServer:
             self._charge_admission(tenant, len(new_ids))
         domain = self._domain_for(ft)
         ft.refresh()
-        with self.device_lock:
-            docs = algo(new_ids, domain, ft, int(req["seed"]), **kw)
+        if fleet_rows is not None:
+            rows = np.asarray(fleet_rows, np.float32)[: len(new_ids)]
+            acts = domain.cs.active_mask_host(rows)
+            docs = docs_from_samples(domain.cs, new_ids, rows, acts,
+                                     exp_key=getattr(ft, "exp_key", None))
+        else:
+            with self.device_lock:
+                docs = algo(new_ids, domain, ft, int(req["seed"]), **kw)
         # Canonicalize now, inside the lock: the docs the server stores
         # and replies are plain JSON types like every other doc.  The
         # common case (docs_from_samples output) is already canonical
@@ -1397,6 +1499,25 @@ class StoreServer:
 #: key, reused verbatim across retries so the server executes it once.
 _MUTATING_VERBS = frozenset(
     {"new_trial_ids", "insert_docs", "reserve", "write_result", "suggest"})
+
+#: Mutating verbs that are retry-convergent without a key: re-executing
+#: the request converges on the same durable state (heartbeat refreshes a
+#: timestamp to the same pinned clock, requeue_stale is a fixpoint scan,
+#: delete_all/put_domain/att_set/att_del overwrite or clear absolutely,
+#: store_fence/store_import set a flag or install a state absolutely),
+#: so retries need no idempotency cache entry.  Every mutating verb is
+#: in exactly one of these two catalogs.  The same catalog as the JAX
+#: package's.
+_IDEMPOTENT_VERBS = frozenset(
+    {"heartbeat", "requeue_stale", "delete_all", "put_domain",
+     "att_set", "att_del", "store_fence", "store_import"})
+
+#: Fleet control-plane verbs (autoscaler / operator surface): ephemeral
+#: server directives that never touch durable store state.  ``shed``
+#: arms admission control on a shard, ``fence`` quiesces a whole shard
+#: for a bounded cutover.  Driven through ad-hoc RPC clients by the
+#: router and the autoscaler.
+_CONTROL_VERBS = frozenset({"shed", "fence"})
 
 _BACKOFF_CAP_S = 2.0
 #: Client defaults: transport retries per call, the first backoff (s),
@@ -2145,16 +2266,179 @@ class NetWorker(FileWorker):
     """`FileWorker` over the network store: the identical
     reserve→evaluate→heartbeat→write loop, claims arbitrated server-side.
     ``token`` authenticates every verb against a token-protected
-    :class:`StoreServer`."""
+    :class:`StoreServer`.  ``faults`` (a ``faults.configure`` spec, seeded
+    by ``faults_seed``) arms this worker's fault schedule when it runs,
+    as ``FileWorker`` does (the CLI's ``--faults``)."""
 
     def __init__(self, url, exp_key="default", token: str | None = None,
+                 faults: str | None = None, faults_seed: int = 0,
                  **kwargs):
         # Resolved before super().__init__, which calls _make_trials.
         self._token = _resolve_token(token)
-        super().__init__(url, exp_key=exp_key, **kwargs)
+        super().__init__(url, exp_key=exp_key, faults=faults,
+                         faults_seed=faults_seed, **kwargs)
 
     def _make_trials(self, url, exp_key):
         return NetTrials(url, exp_key=exp_key, token=self._token)
+
+
+# ---------------------------------------------------------------------------
+# Router-aware client (the sharded fleet, service/router.py)
+# ---------------------------------------------------------------------------
+
+#: Default period (s) after which a routed client re-fetches the shard map.
+DEFAULT_MAP_REFRESH_S = 30.0
+
+
+class _RoutedRpc:
+    """:class:`_Rpc` facade that places itself through a router's shard map.
+
+    Fetches the ``shard_map`` verb from the router at construction and
+    again every ``map_refresh_s`` seconds (or on a transport failure),
+    computes the owning shard of this client's ``(tenant, exp_key)`` with
+    the pinned hash the router uses (``service/cluster.py``), and then
+    speaks to the owning primary directly: the router serves topology,
+    not the data path.
+
+    Failover: a :class:`NetstoreUnavailable` from the shard pushes the
+    verb through the router (whose forward path promotes the warm
+    replica) with the same idempotency key pinned before the first
+    attempt, so the promoted replica either replays the shipped record's
+    cached reply or executes the verb for the first time.
+    """
+
+    def __init__(self, router_url: str, exp_key: str,
+                 timeout: float = 30.0, token: str | None = None,
+                 retries: int | None = None,
+                 map_refresh_s: float | None = None):
+        self._router = _Rpc(router_url, exp_key, timeout=timeout,
+                            token=token, retries=retries)
+        self.exp_key = exp_key
+        self.timeout = timeout
+        self.token = _resolve_token(token)
+        self._retries = retries
+        self.map_refresh_s = float(DEFAULT_MAP_REFRESH_S
+                                   if map_refresh_s is None
+                                   else map_refresh_s)
+        self._lock = threading.Lock()
+        self._shard_rpc = None
+        self.shard_id = None
+        self.tenant = None
+        self.map_version = None
+        self._map_t = float("-inf")
+        self._refresh_map(force=True)
+
+    @property
+    def url(self) -> str:
+        """The owning shard primary's URL (moves under failover)."""
+        with self._lock:
+            return self._shard_rpc.url
+
+    def _refresh_map(self, force: bool = False) -> None:
+        with self._lock:
+            if (not force and time.monotonic() - self._map_t
+                    < self.map_refresh_s):
+                return
+            out = self._router("shard_map")
+            from ..service.cluster import ShardMap
+            smap = ShardMap.from_dict(out["map"])
+            self.tenant = out.get("tenant")
+            sid, ent = smap.owner(self.tenant, self.exp_key)
+            self._map_t = time.monotonic()
+            self.map_version = smap.version
+            if (self._shard_rpc is None or self.shard_id != sid
+                    or self._shard_rpc.url != ent["primary"]):
+                self._shard_rpc = _Rpc(ent["primary"], self.exp_key,
+                                       timeout=self.timeout,
+                                       token=self.token,
+                                       retries=self._retries)
+                self.shard_id = sid
+
+    def __call__(self, verb: str, **kw) -> dict:
+        self._refresh_map()
+        if verb in _MUTATING_VERBS and "idem" not in kw:
+            # Pinned here so that the post-failover retry reuses it.
+            kw["idem"] = uuid.uuid4().hex
+        with self._lock:
+            rpc = self._shard_rpc
+        try:
+            return rpc(verb, **kw)
+        except ShardFenced:
+            return self._redirect(verb, kw)
+        except NetstoreUnavailable:
+            # The primary is gone, and since the data path is direct the
+            # router may not know yet: push this very verb through the
+            # router, whose forward path retries, promotes the warm
+            # replica and answers from the new primary.  The idem key
+            # pinned above rides both attempts.
+            _metrics.registry().counter("netstore.client.reroutes").inc()
+            out = self._router(verb, **kw)
+            try:
+                self._refresh_map(force=True)    # re-place future calls
+            except (NetstoreUnavailable, RuntimeError, OSError):
+                pass                 # best effort; the next call retries
+            return out
+
+    def _redirect(self, verb: str, kw: dict) -> dict:
+        """Typed retriable redirect: the owning store (or its whole
+        shard) is fenced for a bounded cutover (rebalance, promotion or
+        a per-store migration).  Refresh the map and re-place: the fence
+        lifts by the map changing, not by waiting it out.  Bounded by the
+        client timeout, after which the typed error surfaces."""
+        _metrics.registry().counter("netstore.client.redirects").inc()
+        deadline = time.monotonic() + max(float(self.timeout), 5.0)
+        delay = 0.05
+        while True:
+            try:
+                self._refresh_map(force=True)
+            except (NetstoreUnavailable, RuntimeError, OSError):
+                pass             # router briefly busy: retry below
+            with self._lock:
+                rpc = self._shard_rpc
+            try:
+                return rpc(verb, **kw)
+            except ShardFenced:
+                if time.monotonic() >= deadline:
+                    raise
+                time.sleep(delay * (0.5 + rpc._jitter.random()))
+                delay = min(delay * 2.0, 0.5)
+
+
+class RouterTrials(NetTrials):
+    """:class:`NetTrials` behind the fleet router (``service/router.py``).
+
+    Same surface, other placement: ``url`` is the router's URL; the
+    client pulls the shard map from it, hashes its own ``(tenant,
+    exp_key)`` onto the ring and talks to the owning shard primary
+    directly, re-placing itself after a failover or a rebalance (see
+    :class:`_RoutedRpc`).  ``token`` authenticates against both the
+    router (the edge) and the shard (the authority); ``map_refresh_s``
+    is the map's refresh period (default ``DEFAULT_MAP_REFRESH_S``).
+    """
+
+    def __init__(self, url: str, exp_key: str = "default", refresh=True,
+                 timeout: float = 30.0, token: str | None = None,
+                 retries: int | None = None,
+                 map_refresh_s: float | None = None):
+        self._rpc = _RoutedRpc(url, exp_key, timeout=timeout,
+                               token=token, retries=retries,
+                               map_refresh_s=map_refresh_s)
+        self._last_metrics_push = float("-inf")
+        # Delta-refresh state (see NetTrials.__init__).  Safe across a
+        # failover or rebalance: the promoted or receiving shard mints a
+        # fresh store epoch, so a cursor from the old placement gets a
+        # full resend.
+        self._cursor = None
+        self._net_pos = {}
+        self._delta_ok = True
+        self.reserve_wait_s = 0.0
+        Trials.__init__(self, exp_key=exp_key, refresh=refresh)
+        self.attachments = _NetAttachments(self._rpc)
+
+    @property
+    def shard_id(self):
+        """The shard currently owning this client's store."""
+        return self._rpc.shard_id
 
 
 # ---------------------------------------------------------------------------

@@ -81,12 +81,18 @@ def test_imports_with_jax_blocked():
         "import hyperopt_tpu_torch.service\n"
         "import hyperopt_tpu_torch.service.tenancy\n"
         "import hyperopt_tpu_torch.service.cluster\n"
+        "import hyperopt_tpu_torch.service.store\n"
+        "import hyperopt_tpu_torch.service.wal\n"
+        "import hyperopt_tpu_torch.service.server\n"
+        "import hyperopt_tpu_torch.service.replica\n"
+        "import hyperopt_tpu_torch.service.router\n"
+        "import hyperopt_tpu_torch.service.autoscaler\n"
         "sys.path.insert(0, 'tests_torch_cuda')\n"
         "import conftest, test_torch_cuda_device, test_torch_cuda_ei_scores\n"
         "import test_torch_cuda_fleet, test_torch_cuda_obs\n"
         "import test_torch_cuda_pipeline, test_torch_cuda_tpe_rest\n"
         "import test_torch_cuda_backends, test_torch_cuda_dispatch\n"
-        "import test_torch_cuda_netstore\n"
+        "import test_torch_cuda_netstore, test_torch_cuda_service\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hyperopt_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "assert 'matplotlib' not in sys.modules\n"
