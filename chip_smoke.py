@@ -210,7 +210,25 @@ Phases, each fatal on failure:
                ``state_bytes()`` and next suggest are unchanged, and a
                primary shut down is failed over to its replica with no
                trial lost.
-15. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
+15. show      the port's ``show`` on the card's own artifacts, each step
+               where the phase before it leaves them: (a) in obs (c),
+               ``show trace`` over the hosted ``fmin(trace_dir=)`` from
+               the 1,000-trial history (phases cover >= 95% of wall, the
+               profiler export names K1) and ``--pickle`` of that run's
+               trials (no torch object in the pickle); in the service
+               phase (c) ``show live --once`` against the running
+               ``ServiceServer`` after the cohort windows (every tenant's
+               row and the cohort occupancy) and against the ``Router``
+               (both shards ok); (d) ``show wal`` and ``--json`` over the
+               service WAL (8 x 1,000 trials): ``per_verb`` equals the
+               phase's own count of logged requests; (b) ``show trace
+               --merge`` over the flight bundles pulled from the served
+               run and the obs trace; (e) ``show bundle`` on one bundle;
+               then (f) ``show lint --root`` on the checkout (the
+               analyzers need only the stdlib): exit 0, 0 new.  Each
+               step's wall time beside the card, and a ``show json:``
+               line.
+16. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
                and every collected test passed.
 
 Prints the card's name and power limit first and again before the
@@ -222,12 +240,17 @@ there is no CUDA device or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import cProfile
+import io
 import json
 import math
 import os
+import pickle
+import pickletools
 import pstats
+import re
 import shutil
 import subprocess
 import sys
@@ -1642,10 +1665,12 @@ def obs_device_runs(dev, space, cs, algo, obj, counted):
     return runs[(None, True)]
 
 
-def phase_obs(dev):
+def phase_obs(dev, show=None):
     """The observability layer at full width, checks (a) to (d).  Returns
     ``{lowering: (eager launches, launches recorded into graphs, replays
-    of graphs that hold the kernel)}`` over its runs."""
+    of graphs that hold the kernel)}`` over its runs.  With ``show`` (a
+    :class:`ShowSteps`), (c)'s trace directory and trials go through its
+    step (a) and the directory is kept for its merge."""
     space = flagship_space()
     cs = compile_space(space)
     algo = partial(tpe.suggest, n_EI_candidates=N_CAND)
@@ -1718,6 +1743,8 @@ def phase_obs(dev):
             spans = json.load(fh)
         size = os.path.getsize(os.path.join(trace_dir,
                                             obs_trace.PROFILER_TRACE))
+        if show is not None:
+            show.trace(trace_dir, trials)
     finally:
         shutil.rmtree(trace_dir, ignore_errors=True)
     print(f"obs (c): fmin(trace_dir=) from {N_HISTORY} trials, {N_MORE} "
@@ -3478,10 +3505,14 @@ def phase_netstore(dev):
     return tally.rows()
 
 
-def phase_service(dev):
+def phase_service(dev, show=None):
     """The service tier at full width, checks (a) to (e).  Returns
     ``{lowering: (eager launches, 0, 0)}`` over the phase's server-side
-    suggests, cohort windows and routed suggests."""
+    suggests, cohort windows and routed suggests.  With ``show`` (a
+    :class:`ShowSteps`), its steps (b) to (e) run on the phase's server,
+    WAL and router where they stand, the phase's requests to the server
+    are counted by the verbs the WAL logs, and the event log records the
+    served run from (c) on."""
     from hyperopt_tpu_torch import backends, wire
     from hyperopt_tpu_torch.backends import contract
     from hyperopt_tpu_torch.parallel import NetTrials, RouterTrials
@@ -3490,6 +3521,7 @@ def phase_service(dev):
     from hyperopt_tpu_torch.service import wal as wal_mod
     from hyperopt_tpu_torch.service.cluster import HashRing
     from hyperopt_tpu_torch.service.router import Router
+    from hyperopt_tpu_torch.service.server import ServiceServer as _Srv
 
     t_phase = time.perf_counter()
     metrics.set_enabled(True)
@@ -3510,6 +3542,7 @@ def phase_service(dev):
     servers = []
     ids = [N_HISTORY]
     kw = dict(n_EI_candidates=N_CAND)
+    logged = None
     try:
         # (a) set-up: 8 tenants, each its flagship domain on the card and
         # its own seeded 1,000-trial history, in binary frames.
@@ -3517,6 +3550,8 @@ def phase_service(dev):
         srv = mk()
         srv.start()
         servers.append(srv)
+        if show is not None:
+            logged = _LoggedCount(srv.url, _Srv._WAL_VERBS)
         t0 = time.perf_counter()
         tenants = []
         for i in range(SVC_TENANTS):
@@ -3629,6 +3664,9 @@ def phase_service(dev):
                 fail(f"service (c): window {w} hung")
             return out, (time.perf_counter() - t1) * 1e3
 
+        if show is not None:
+            EVENTS.clear()
+            EVENTS.enable()
         d0 = fleet.dispatches
         win_ms = []
         for w in range(SVC_WINDOWS):
@@ -3679,6 +3717,11 @@ def phase_service(dev):
               f"{[round(x, 3) for x in win_ms]}; a 9th request with "
               f"gamma=0.5 in a 4th window took the solo path (1 dispatch, "
               f"2 K1 launches), its row equal to the in-process one")
+        if show is not None:
+            show.live(srv.url, f"{NET_TOKEN}-0", "service",
+                      tenants=[f"tenant{i}" for i in range(SVC_TENANTS)],
+                      cohort=(SVC_TENANTS, tier))
+            show.pull_bundle(tenants[0][0], "service")
 
         # (d) crash and recovery: the server stops without a snapshot; a
         # new one on the same WAL directory rebuilds the same bytes and
@@ -3687,6 +3730,9 @@ def phase_service(dev):
         srv.shutdown()
         servers.remove(srv)
         info = wal_mod.inspect(wal_dir)
+        if show is not None:
+            logged.stop()
+            show.wal(wal_dir, logged.counts)
         d2 = fleet.dispatches
         t1 = time.perf_counter()
         srv = tally.counted("f32", mk)
@@ -3720,6 +3766,10 @@ def phase_service(dev):
               f"state_bytes() ({len(live)} bytes) in {rec_s:.2f} s with no "
               f"EI launch and no dispatch; tpe_bf16 and tpe_mxu served by "
               f"name after it: {by_name}, rows equal the in-process ones")
+        if show is not None:
+            show.pull_bundle(nt, "recovered")
+            show.merge()
+            show.bundle()
         srv.shutdown()
         servers.remove(srv)
 
@@ -3777,6 +3827,8 @@ def phase_service(dev):
             owners = [routed_equal(k, 5, "routed") for k in (k0, k1)]
             if owners != ["s0", "s1"]:
                 fail(f"service (e): owners {owners}")
+            if show is not None:
+                show.live(router.url, NET_TOKEN, "router", shards=2)
             before = prims["s1"]._trials[(None, k1)].state_bytes()
             new = shard(os.path.join(root, "s2p"), role="primary")
             new.start()
@@ -3818,6 +3870,11 @@ def phase_service(dev):
         finally:
             router.shutdown()
     finally:
+        if logged is not None:
+            logged.stop()
+        if show is not None:
+            EVENTS.disable()
+            EVENTS.clear()
         wire.set_mode(prev_mode)
         for s_ in servers:
             s_.shutdown()
@@ -3825,6 +3882,248 @@ def phase_service(dev):
     print(f"service: EI wrapper over the phase's counted runs: eager "
           f"launches {tally.launches}; {time.perf_counter() - t_phase:.1f} s")
     return tally.rows()
+
+
+class _LoggedCount:
+    """Counts this process's requests to one server by the WAL records
+    they make (``ServiceServer._suggest_walled``'s decomposition: a
+    suggest logs ``new_trial_ids`` when the server picks the ids and
+    ``insert_docs`` when it inserts; every other verb of the catalog logs
+    itself), by wrapping the client's ``_Rpc.__call__``."""
+
+    def __init__(self, url, verbs):
+        from hyperopt_tpu_torch.parallel import netstore
+        self.counts = {}
+        self._cls = netstore._Rpc
+        self._real = real = netstore._Rpc.__call__
+        url = url.rstrip("/")
+
+        def call(rpc, verb, **kw):
+            out = real(rpc, verb, **kw)
+            if rpc.url == url and verb in verbs:
+                if verb != "suggest":
+                    logs = [verb]
+                else:
+                    picks = "new_ids" not in kw
+                    logs = (["new_trial_ids"] if picks else []) + (
+                        ["insert_docs"] if kw.get("insert", picks) else [])
+                for v in logs:
+                    self.counts[v] = self.counts.get(v, 0) + 1
+            return out
+
+        netstore._Rpc.__call__ = call
+
+    def stop(self):
+        self._cls.__call__ = self._real
+
+
+class ShowSteps:
+    """The show phase: the port's ``hyperopt-tpu-torch-show`` verbs on
+    the artifacts of the phases before it, each step called where they
+    stand (:func:`phase_obs` (c), :func:`phase_service`) and timed; the
+    lint step and the summary run in :func:`phase_show`."""
+
+    def __init__(self, card):
+        self.card = card
+        self.root = tempfile.mkdtemp(prefix="chip_smoke_show_")
+        self.steps = {}
+        self.bundles = []
+        self.trace_copy = None
+        self.wal_info = None
+        self.lint = None
+
+    def _timed(self, name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        self.steps[name] = time.perf_counter() - t0
+        return out
+
+    def trace(self, trace_dir, trials):
+        """(a) ``show trace`` and ``--pickle`` of the run's trials."""
+        from hyperopt_tpu_torch import show
+
+        def summary():
+            buf = io.StringIO()
+            show.summarize_trace(trace_dir, out=buf)
+            return buf.getvalue()
+
+        text = self._timed("a trace", summary)
+        cov = re.search(r"\(([0-9.]+)% coverage\)", text)
+        if cov is None or float(cov.group(1)) < 95.0:
+            fail(f"show (a): the phases cover {cov and cov.group(1)}% of "
+                 f"wall, wanted >= 95%:\n{text}")
+        rows = {ln.split()[0] for ln in text.splitlines()[1:] if ln.strip()}
+        if not {"suggest", "evaluate"} <= rows:
+            fail(f"show (a): no suggest/evaluate rows:\n{text}")
+        with open(os.path.join(trace_dir, obs_trace.PROFILER_TRACE)) as fh:
+            names = [e.get("name", "") for e in json.load(fh)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+        n_k1 = sum(KERNEL_SYMBOLS["f32"] in n for n in names)
+        if not n_k1:
+            fail("show (a): profiler_trace.json names no K1 launch")
+        self.trace_copy = os.path.join(self.root, "obs_trace")
+        shutil.copytree(trace_dir, self.trace_copy)
+        # The run's trials, pickled: no object of torch's in the stream
+        # (no tensor, so no CUDA storage), and ``--pickle`` summarizes it.
+        path = os.path.join(self.root, "trials.pkl")
+        with open(path, "wb") as fh:
+            pickle.dump(trials, fh)
+        with open(path, "rb") as fh:
+            blob = fh.read()
+        refs = sorted({arg for op, arg, _ in pickletools.genops(blob)
+                       if isinstance(arg, str)
+                       and (arg == "torch" or arg.startswith("torch."))})
+        if refs:
+            fail(f"show (a): the pickled trials name {refs}")
+        want = io.StringIO()
+        show.summarize(trials, out=want)
+        got = io.StringIO()
+        with contextlib.redirect_stdout(got):
+            rc = self._timed("a pickle", lambda: show.main(
+                ["--pickle", path]))
+        if rc != 0 or got.getvalue() != want.getvalue():
+            fail(f"show (a): --pickle exited {rc}:\n{got.getvalue()}")
+        print(f"show (a): show trace over obs (c)'s fmin(trace_dir=) "
+              f"({len(trials)} trials): coverage {cov.group(1)}%, "
+              f"profiler_trace.json names {KERNEL_SYMBOLS['f32']} {n_k1} "
+              f"times; {len(blob)} bytes of pickled trials (no torch "
+              f"object in the stream) summarized by --pickle in "
+              f"{self.steps['a pickle']:.3f} s; show trace "
+              f"{self.steps['a trace']:.3f} s ({self.card})")
+        print(text.rstrip())
+
+    def live(self, url, token, what, tenants=(), cohort=None, shards=None):
+        """(c) ``show live --once`` against a running server or router."""
+        from hyperopt_tpu_torch import show
+
+        buf = io.StringIO()
+        rc = self._timed(f"c live {what}", lambda: show.live(
+            url, token=token, once=True, out=buf))
+        text = buf.getvalue()
+        rows = {ln.split()[0] for ln in text.splitlines() if ln.strip()}
+        missing = [t for t in tenants if t not in rows]
+        bad = rc != 0 or missing
+        if cohort is not None and \
+                f"cohorts: last {cohort[0]}/{cohort[1]} lanes" not in text:
+            bad = True
+        if shards is not None and (
+                f"router: {shards} shard(s)" not in text
+                or sum(f"s{i}" in rows for i in range(shards)) != shards
+                or "DOWN" in text):
+            bad = True
+        if bad:
+            fail(f"show (c): live against the {what} (rc {rc}, tenants "
+                 f"missing {missing}):\n{text}")
+        print(f"show (c): show live --once against the {what} on {url}: "
+              f"{len(tenants)} tenant rows, "
+              + (f"cohorts line 'last {cohort[0]}/{cohort[1]} lanes', "
+                 if cohort else "")
+              + (f"{shards} shards ok, " if shards else "")
+              + f"{self.steps[f'c live {what}']:.3f} s ({self.card})")
+        print(text.rstrip())
+
+    def pull_bundle(self, client, what):
+        out = os.path.join(self.root, f"bundle-{what}")
+        payload = client.bundle(out_dir=out)
+        if not payload.get("events"):
+            fail(f"show: the {what} server's bundle holds no events")
+        self.bundles.append(out)
+
+    def wal(self, wal_dir, counts):
+        """(d) ``show wal`` and ``--json`` over the service WAL."""
+        from hyperopt_tpu_torch import show
+
+        text, js = io.StringIO(), io.StringIO()
+        rc = self._timed("d wal", lambda: show.show_wal(wal_dir, out=text))
+        rc_j = self._timed("d wal --json", lambda: show.show_wal(
+            wal_dir, as_json=True, out=js))
+        info = json.loads(js.getvalue())
+        if rc or rc_j or info["per_verb"] != counts or info["torn_tail"] \
+                or info["records"] != sum(counts.values()):
+            fail(f"show (d): per_verb {info['per_verb']} against the "
+                 f"phase's {counts}; torn {info['torn_tail']}, records "
+                 f"{info['records']}")
+        self.wal_info = info
+        print(f"show (d): show wal over the service WAL ({info['records']} "
+              f"records, {info['wal_bytes']} bytes): per_verb equals the "
+              f"phase's own count {counts}; text "
+              f"{self.steps['d wal']:.3f} s, --json "
+              f"{self.steps['d wal --json']:.3f} s ({self.card})")
+        print(text.getvalue().rstrip())
+
+    def merge(self):
+        """(b) ``show trace --merge`` over the served run's bundles and
+        the obs trace."""
+        from hyperopt_tpu_torch import show
+
+        dirs = self.bundles + [self.trace_copy]
+        out = os.path.join(self.root, "merged_trace.json")
+        buf = io.StringIO()
+        doc = self._timed("b merge", lambda: show.merge_traces(
+            dirs, out_path=out, out=buf))
+        lanes = {e["pid"] for e in doc["traceEvents"]
+                 if e.get("ph") != "M" and e.get("cat") != "trial_flow"}
+        if doc["otherData"]["n_lanes"] != len(dirs) or \
+                lanes != set(range(1, len(dirs) + 1)) or \
+                "warning" in buf.getvalue():
+            fail(f"show (b): merged {doc['otherData']} with events in "
+                 f"lanes {sorted(lanes)}:\n{buf.getvalue()}")
+        print(f"show (b): show trace --merge over {len(dirs)} dirs (the "
+              f"service and recovered servers' bundles, obs (c)'s trace): "
+              f"{buf.getvalue().strip().splitlines()[-1]}; "
+              f"{os.path.getsize(out)} bytes, "
+              f"{self.steps['b merge']:.3f} s ({self.card})")
+
+    def bundle(self):
+        """(e) ``show bundle`` on the service server's bundle."""
+        from hyperopt_tpu_torch import show
+
+        buf = io.StringIO()
+        rc = self._timed("e bundle", lambda: show.show_bundle(
+            self.bundles[0], out=buf))
+        text = buf.getvalue()
+        if rc != 0 or "events:" not in text or "ring:" not in text:
+            fail(f"show (e): show bundle exited {rc}:\n{text}")
+        print(f"show (e): show bundle {self.steps['e bundle']:.3f} s "
+              f"({self.card})")
+        print(text.rstrip())
+
+
+def phase_show(show):
+    """(f) ``show lint --root`` on the checkout, then every step's wall
+    time and the ``show json:`` line."""
+    from hyperopt_tpu_torch import show as show_mod
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    want = {"a trace", "a pickle", "c live service", "c live router",
+            "d wal", "d wal --json", "b merge", "e bundle"}
+    try:
+        if set(show.steps) != want:
+            fail(f"show: steps run {sorted(show.steps)}, wanted "
+                 f"{sorted(want)}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = show._timed("f lint", lambda: show_mod.main(
+                ["lint", "--root", root]))
+        text = out.getvalue().strip()
+        last = text.splitlines()[-1] if text else ""
+        found = re.match(r"(\d+) finding\(s\): (\d+) new, (\d+) "
+                         r"baselined, (\d+) stale", last)
+        if rc != 0 or found is None or found.group(2) != "0" or \
+                found.group(4) != "0":
+            fail(f"show (f): show lint exited {rc}:\n{text[-3000:]}")
+        show.lint = int(found.group(1))
+        print(f"show (f): show lint --root {root}: {last} "
+              f"({show.steps['f lint']:.3f} s; {show.card})")
+        for name in sorted(show.steps):
+            print(f"show {name}: {show.steps[name]:.3f} s ({show.card})")
+        print("show json: " + json.dumps(
+            {"card": show.card, "steps_s": show.steps,
+             "wal_records": show.wal_info["records"],
+             "wal_bytes": show.wal_info["wal_bytes"],
+             "lint_findings": show.lint}))
+    finally:
+        shutil.rmtree(show.root, ignore_errors=True)
 
 
 def phase_card_tests():
@@ -3872,13 +4171,15 @@ def main():
     liar_launches = phase_liar_batch(dev)
     device_launches, solo_rates = phase_device_mode(dev, hosted)
     fleet_launches, fleet_times = phase_fleet(dev, solo_rates)
-    obs_launches = phase_obs(dev)
+    show = ShowSteps(card)
+    obs_launches = phase_obs(dev, show)
     pipeline_launches = phase_pipeline(dev)
     rest_launches = phase_tpe_rest(dev, hosted)
     heads_launches, heads_err = phase_heads(dev)
     dispatch_launches = phase_dispatch(dev)
     netstore_launches = phase_netstore(dev)
-    service_launches = phase_service(dev)
+    service_launches = phase_service(dev, show)
+    phase_show(show)
     phase_card_tests()
     print(f"total seconds {time.perf_counter() - t0:.1f}")
     rows = []

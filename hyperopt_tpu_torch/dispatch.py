@@ -71,6 +71,13 @@ from .obs.metrics import kernel_cache_event
 from .obs.metrics import registry as _metrics_registry
 from .space import CompiledSpace, make_generator, resolve_device
 
+#: Functions that run under device mode's CUDA graph capture, called
+#: from another module: the capture-purity analyzer starts there.
+CAPTURED_ENTRY_POINTS = (
+    "ShardedTpeKernel._cand_slice",
+    "ShardedTpeKernel._reduce_stats",
+)
+
 CAND_AXIS = "sp"    # the candidate axis
 START_AXIS = "dp"   # independent runs
 _MODES = ("auto", "sharded", "local")

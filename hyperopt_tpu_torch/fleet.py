@@ -126,15 +126,15 @@ def space_signature(cs) -> tuple:
     """Structural fingerprint of a compiled space: every field of its
     parameters that reaches the TPE step (family, bounds, priors, options,
     conditions), labels excluded: two experiments over the same structure
-    under other names share a cohort and a kernel.  Cached on the space."""
+    under other names share a cohort and a kernel.  Cached on the space:
+    threads that compute it together all return the first one stored."""
     sig = cs.__dict__.get("_fleet_sig")
     if sig is None:
-        sig = tuple(
+        sig = cs.__dict__.setdefault("_fleet_sig", tuple(
             (p.pid, p.kind, p.low, p.high, p.mu, p.sigma, p.q,
              tuple(p.probs) if p.probs is not None else None,
              p.n_options, tuple(p.conditions))
-            for p in cs.params)
-        cs.__dict__["_fleet_sig"] = sig
+            for p in cs.params))
     return sig
 
 

@@ -251,7 +251,7 @@ def events_to_chrome(events: list, pid: int | None = None, ts_fn=None):
     """Convert structured event records into Chrome ``trace_event`` dicts.
 
     The shared conversion core behind :meth:`EventLog.to_chrome_trace`
-    (single process) and a merger of many processes' logs:
+    (single process) and ``show.py``'s ``merge_traces`` (many processes):
 
     * ``pid`` — the lane the events render into (the merger assigns one
       per source process),

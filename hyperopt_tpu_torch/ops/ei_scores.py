@@ -42,6 +42,12 @@ from pathlib import Path
 
 import torch
 
+#: Functions that run under device mode's CUDA graph capture, called
+#: from another module: the capture-purity analyzer starts there.
+CAPTURED_ENTRY_POINTS = (
+    "ei_scores",
+)
+
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = {"ei_scores": _CSRC / "ei_scores.cu",
@@ -127,6 +133,7 @@ def build() -> dict:
 
 
 def _build_locked() -> dict:
+    """The body of :func:`build`; the caller holds ``_BUILD_LOCK``."""
     started = {}
     for name, source in _SOURCES.items():
         path = _lib_path(name, source.read_bytes())

@@ -16,6 +16,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+#: Functions that run under device mode's CUDA graph capture, called
+#: from another module: the capture-purity analyzer starts there.
+CAPTURED_ENTRY_POINTS = (
+    "tree_sum",
+    "tree_logsumexp",
+    "prefix_sum",
+)
+
 
 def _pad_dim(x, dim, before, after):
     """Zero-pad ``x`` along ``dim`` (``before``/``after`` elements)."""

@@ -26,6 +26,17 @@ import torch
 
 from .fixed_order import prefix_sum, tree_logsumexp
 
+#: Functions that run under device mode's CUDA graph capture, called
+#: from another module: the capture-purity analyzer starts there.
+CAPTURED_ENTRY_POINTS = (
+    "gmm_logpdf",
+    "gmm_log_qmass",
+    "gmm_sample",
+    "icdf_pick",
+    "gumbel_pick",
+    "truncate_mixture",
+)
+
 _TINY = 1e-12
 _U_MAX = 1.0 - 1e-7
 # Smallest normal float32: the lower end of jax.random.gumbel's uniforms.

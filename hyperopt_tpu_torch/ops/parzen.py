@@ -22,6 +22,13 @@ import torch
 
 from .fixed_order import tree_sum
 
+#: Functions that run under device mode's CUDA graph capture, called
+#: from another module: the capture-purity analyzer starts there.
+CAPTURED_ENTRY_POINTS = (
+    "forgetting_weights",
+    "fit_parzen",
+)
+
 
 def forgetting_weights(rank, n_obs, lf):
     """Linear-forgetting weight for observations by recency rank.
@@ -63,8 +70,9 @@ def fit_parzen(x, w, n_obs, prior_mu, prior_sigma, prior_weight, out_cap):
     else:
         pw = torch.full((b, 1), float(prior_weight), dtype=dt, device=dev)
     ws = torch.cat([w.to(dt), pw], dim=1)
-    is_prior = torch.zeros((b, n + 1), dtype=torch.bool, device=dev)
-    is_prior[:, n] = True
+    # The prior's column, built on the device: a scalar written through
+    # an index would be a host write under device mode's capture.
+    is_prior = (torch.arange(n + 1, device=dev) == n).expand(b, n + 1)
 
     # Stable ascending sort: +inf padding lands at the tail, the prior at
     # its sorted position among the live observations (ties keep the

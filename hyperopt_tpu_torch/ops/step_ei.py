@@ -14,6 +14,13 @@ import torch
 
 from .parzen import fit_parzen
 
+#: Functions that run under device mode's CUDA graph capture, called
+#: from another module: the capture-purity analyzer starts there.
+CAPTURED_ENTRY_POINTS = (
+    "ei_argmax_stats",
+    "fused_parzen_fit",
+)
+
 
 def ei_argmax_stats(scores):
     """Per-row argmax of a score sheet ``[rows, n_cand]`` plus passengers.

@@ -36,6 +36,14 @@ import torch
 from .exceptions import DuplicateLabel, InvalidAnnotatedParameter
 from .ops.gmm import icdf_pick
 
+#: Functions that run under device mode's CUDA graph capture, called
+#: from another module: the capture-purity analyzer starts there.
+CAPTURED_ENTRY_POINTS = (
+    "CompiledSpace.draw_uniforms",
+    "CompiledSpace.sample",
+    "CompiledSpace.active_mask",
+)
+
 UNIFORM = "uniform"
 LOGUNIFORM = "loguniform"
 QUNIFORM = "quniform"

@@ -97,6 +97,15 @@ from .space import (
     resolve_device,
 )
 
+#: Functions that run under device mode's CUDA graph capture, called
+#: from another module: the capture-purity analyzer starts there.
+CAPTURED_ENTRY_POINTS = (
+    "_TpeKernel._suggest_lanes",
+    "_TpeKernel.draw_noise",
+    "stack_noise",
+    "_insert_row",
+)
+
 _default_prior_weight = 1.0
 _default_n_startup_jobs = 20
 _default_n_EI_candidates = 24

@@ -521,6 +521,31 @@ def test_signature_ignores_labels_and_sees_structure():
     assert a != fleet.space_signature(other.cs)
 
 
+def test_signature_threads_share_the_first_stored():
+    """Threads that compute a space's signature together all return the
+    one object the first of them stored (the cache is set with
+    ``setdefault``, not a check-then-write)."""
+    import threading
+
+    cs = compile_space({"x": hp.uniform("x", -1.5, 2.5),
+                        "c": hp.choice("c", [0, 1, 2, 3])})
+    cs.__dict__.pop("_fleet_sig", None)
+    gate = threading.Barrier(8)
+    got = []
+
+    def call():
+        gate.wait(timeout=10)
+        got.append(fleet.space_signature(cs))
+
+    threads = [threading.Thread(target=call) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+    assert len(got) == 8
+    assert all(s is cs.__dict__["_fleet_sig"] for s in got)
+
+
 def test_cohort_tier_pow2():
     assert [fleet.cohort_tier(b) for b in (1, 2, 3, 4, 5, 8, 9)] == \
         [1, 2, 4, 4, 8, 8, 16]

@@ -87,6 +87,8 @@ def test_imports_with_jax_blocked():
         "import hyperopt_tpu_torch.service.replica\n"
         "import hyperopt_tpu_torch.service.router\n"
         "import hyperopt_tpu_torch.service.autoscaler\n"
+        "import hyperopt_tpu_torch.show, hyperopt_tpu_torch.analysis\n"
+        "import hyperopt_tpu_torch.analysis.__main__\n"
         "sys.path.insert(0, 'tests_torch_cuda')\n"
         "import conftest, test_torch_cuda_device, test_torch_cuda_ei_scores\n"
         "import test_torch_cuda_fleet, test_torch_cuda_obs\n"

@@ -7,8 +7,8 @@
   verbs only), including a failover.
 * **Mirrors** on the port of ``tests/test_service_fleet.py``: every class
   (``TestHashRing`` for the cases ``test_torch_service_cluster.py`` does
-  not cover; ``TestRouterPlacement``'s dashboard rendering and the chaos
-  test's trace merge wait for ``show.py``), and of
+  not cover), with ``TestRouterPlacement``'s dashboard rendering and the
+  chaos test's trace merge through the port's ``show``, and of
   ``tests/test_lock_regressions.py``'s
   ``test_attach_replica_starts_shipper_outside_lock_after_publish``,
   ``test_router_metrics_fetch_passes_rpc_fault_point`` and
@@ -22,6 +22,7 @@ Every server binds port 0 and is shut down by the test; every client,
 join and child process has a timeout of its own.
 """
 
+import io
 import json
 import os
 import re
@@ -36,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from hyperopt_tpu_torch import base, faults, hp, rand, tpe
+from hyperopt_tpu_torch import base, faults, hp, rand, show, tpe
 from hyperopt_tpu_torch.base import JOB_STATE_DONE, STATUS_OK
 from hyperopt_tpu_torch.exceptions import InjectedFault, NetstoreUnavailable
 from hyperopt_tpu_torch.obs import bundle as obs_bundle
@@ -439,8 +440,8 @@ class TestRouterPlacement:
             f.shutdown()
 
     def test_metrics_merged_and_degraded_shard(self, tmp_path):
-        """The payload half of the JAX test; its ``show live`` rendering
-        waits for ``show.py``."""
+        """A dead shard degrades the router's merged ``/metrics`` payload
+        to a DOWN row; ``show live`` renders both rows."""
         f = _Fleet(str(tmp_path), n_shards=2, replicas=False)
         try:
             nt = NetTrials(f.router.url, exp_key="e1", timeout=20.0)
@@ -455,8 +456,30 @@ class TestRouterPlacement:
             down = [i for i in r["shards"].values() if not i["ok"]][0]
             assert "error" in down
             assert "merged" in snap and "counters" in snap["merged"]
+            buf = io.StringIO()
+            show.render_live(snap, out=buf)
+            text = buf.getvalue()
+            assert "router: 2 shard(s)" in text
+            assert "DOWN" in text and "ok" in text
         finally:
             f.shutdown()
+
+    def test_render_live_empty_and_routerless_snapshots(self):
+        """The dashboard degrades cleanly: no router section -> no shard
+        panel; a router section with zero reachable shards still
+        renders a frame."""
+        buf = io.StringIO()
+        show.render_live({}, out=buf)
+        assert "fleet: 0 worker(s)" in buf.getvalue()
+        assert "router:" not in buf.getvalue()
+        buf = io.StringIO()
+        show.render_live(
+            {"router": {"version": 4, "n_shards": 1, "shards": {
+                "s0": {"url": "http://x", "replica": None, "ok": False,
+                       "error": "URLError: refused"}}}}, out=buf)
+        text = buf.getvalue()
+        assert "router: 1 shard(s)" in text and "map v4" in text
+        assert "DOWN" in text and "URLError: refused" in text
 
     def test_parse_shard_spec(self):
         assert _parse_shard_spec("s0=http://a,http://b") == \
@@ -609,8 +632,8 @@ class TestChaosFleetKill:
         then (reserve, write) pairs: ``@4``).  The router promotes the
         warm replica; the pinned idem key and the shipped records make the
         retried verb exactly-once; the killed process froze a flight
-        bundle whose events carry the client's trace id.  (Splicing it
-        into a merged trace waits for ``show.py``.)"""
+        bundle whose events carry the client's trace id, and the bundle
+        splices into a merged trace as a lane."""
         flight_dir = str(tmp_path / "flight")
         rp, rurl = _launch_shard(
             ["--wal-dir", str(tmp_path / "r"), "--role", "replica"])
@@ -650,6 +673,12 @@ class TestChaosFleetKill:
             assert payload["manifest"]["extra"]["trigger"] == "wal_crash"
             traced = {e.get("trace_id") for e in payload["events"]}
             assert trace_id in traced
+            bdir = os.path.join(flight_dir, bundles[0])
+            buf = io.StringIO()
+            doc = show.merge_traces([bdir], out=buf)
+            assert doc["otherData"]["n_lanes"] == 1
+            assert "missing" not in buf.getvalue()
+            assert trace_id in json.dumps(doc)
         finally:
             router.shutdown()
             _stop(pp), _stop(rp)
