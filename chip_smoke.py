@@ -228,11 +228,23 @@ Phases, each fatal on failure:
                analyzers need only the stdlib): exit 0, 0 new.  Each
                step's wall time beside the card, and a ``show json:``
                line.
-16. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
+16. examples  every ``examples_torch/`` script on the card, in this
+               process through ``runpy``, at its own budget and with no
+               argument (06 only where scikit-learn is installed; the
+               phase says so when it is not): each prints a result line
+               with a finite number, and launches K1 (and neither K2 nor
+               K3), counted from 0 just before it; 04's sharded run counts
+               its 40 TPE steps in ``dispatch.sharded`` over a world-1
+               NCCL mesh; 11 replays its captured step once per trial with
+               no eager step.  Per script: wall seconds, best loss, K1
+               launches, and for 11 the replays.
+17. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
                and every collected test passed.
 
 Prints the card's name and power limit first and again before the
-kernels line, one ``{"kernels": [...]}`` JSON line before the last, and
+kernels line, each phase's wall seconds as it ends and a ``phase
+seconds:`` JSON line of all of them, one ``{"kernels": [...]}`` JSON line
+before the last, and
 as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
 there is no CUDA device or the package is missing.
@@ -403,6 +415,14 @@ SVC_TENANTS = 8
 SVC_WINDOW_MS = 200.0
 SVC_WINDOWS = 3
 SVC_SEED = 300
+# examples: the directory of the port's example scripts, the rule their
+# result lines follow (``tests/test_torch_examples.py``: ``best``, ``loss``
+# or ``error`` and a finite number), and the TPE steps of 04's sharded
+# run (60 trials, the first 20 random startup draws).
+EXAMPLES_DIR = "examples_torch"
+EXAMPLE_RESULT = re.compile(r"\b(?:best|loss|error)\b\s*:?\s*"
+                            r"(-?\d+(?:\.\d+)?(?:e[-+]?\d+)?)")
+EXAMPLE_SHARDED = 40
 # Kernel symbol of each lowering, as the profiler names it.
 KERNEL_SYMBOLS = {"f32": "ei_scores_kernel<false>",
                   "bf16": "ei_scores_kernel<true>",
@@ -4126,6 +4146,116 @@ def phase_show(show):
         shutil.rmtree(show.root, ignore_errors=True)
 
 
+def phase_examples(card):
+    """Every ``examples_torch/`` script on the card, in this process
+    through ``runpy``, at its own budget: checks in the module doc.
+    ``fmin`` and ``fmin_device`` are wrapped to read each run's best loss
+    (and to turn the progress bar off); nothing else changes.  Returns
+    ``{lowering: (eager launches, launches recorded into graphs, replays
+    of graphs that hold the kernel)}`` over the scripts."""
+    import importlib.util
+    import runpy
+
+    from hyperopt_tpu_torch import atpe
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    folder = os.path.join(root, EXAMPLES_DIR)
+    scripts = sorted(f for f in os.listdir(folder) if f.endswith(".py"))
+    tally = Tally()
+    reg = metrics.registry()
+    runs = []
+
+    def fmin(*args, **kwargs):
+        kwargs.setdefault("show_progressbar", False)
+        out = real_fmin(*args, **kwargs)
+        runs.append((kwargs["trials"].best_trial["result"]["loss"], None))
+        return out
+
+    def fmin_device(*args, **kwargs):
+        best, info = real_device(*args, **kwargs)
+        runs.append((info["best_loss"], info["n_trials"]))
+        return best, info
+
+    def n_sharded():
+        return reg.snapshot()["counters"].get("dispatch.sharded", 0.0)
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-examples-")
+    real_fmin, real_device = ho.fmin, ho.fmin_device
+    saved = sys.argv, list(sys.path), atpe.set_transfer_store(None)
+    ho.fmin, ho.fmin_device = fmin, fmin_device
+    t_phase = time.perf_counter()
+    try:
+        for script in scripts:
+            if script.startswith("06") and \
+                    importlib.util.find_spec("sklearn") is None:
+                print("examples: 06 not run: no sklearn")
+                continue
+            path = os.path.join(folder, script)
+            sys.argv = [path]
+            if script.startswith("08"):
+                sys.argv += ["--transfer-store",
+                             os.path.join(tmp, "atpe_transfer.json")]
+            runs.clear()
+            before = (dict(tally.launches), dict(tally.recorded),
+                      tally.replayed["f32"], n_sharded())
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    tally.counted("f32", partial(runpy.run_path, path,
+                                                 run_name="__main__"))
+            except Exception as e:
+                raise RuntimeError(f"examples: {script} raised:\n"
+                                   f"{out.getvalue()[-3000:]}") from e
+            wall = time.perf_counter() - t0
+            text = out.getvalue()
+            print("".join(f"  | {line}\n" for line in text.splitlines()),
+                  end="")
+            launched = {k: tally.launches[k] - before[0][k] for k in KERNELS}
+            recorded = {k: tally.recorded[k] - before[1][k] for k in KERNELS}
+            replayed = tally.replayed["f32"] - before[2]
+            found = [float(m.group(1)) for m in EXAMPLE_RESULT.finditer(text)]
+            losses = [loss for loss, _ in runs]
+            if not found or not all(map(math.isfinite, found + losses)) \
+                    or not losses:
+                fail(f"examples: {script} printed no result line, or a "
+                     f"best loss that is not finite ({losses}):\n{text}")
+            if launched["f32"] + recorded["f32"] == 0 or any(
+                    launched[k] + recorded[k] for k in ("bf16", "mxu")):
+                fail(f"examples: {script} launched the EI kernels "
+                     f"{launched} and recorded {recorded}: K1 and only K1 "
+                     f"must run")
+            extra = ""
+            if script.startswith("04"):
+                sharded = n_sharded() - before[3]
+                if sharded != EXAMPLE_SHARDED:
+                    fail(f"examples: 04 counted {sharded} sharded "
+                         f"suggests, wanted {EXAMPLE_SHARDED}")
+                extra = f", dispatch.sharded +{sharded:.0f}"
+            if script.startswith("11"):
+                trials = sum(n for _, n in runs)
+                if device.eager_steps != 0 or replayed != trials:
+                    fail(f"examples: 11 ran {device.eager_steps} eager "
+                         f"steps and {replayed} replays for {trials} "
+                         f"trials")
+                extra = (f", device.replays {replayed} for {trials} "
+                         f"trials, eager_steps == 0")
+            print(f"examples {script}: {wall:.3f} s, best loss "
+                  f"{min(losses)!r} (runs {losses}), K1 launches "
+                  f"{launched['f32']} ({recorded['f32']} recorded into "
+                  f"graphs, "
+                  f"{replayed} graph replays){extra}; {card}")
+    finally:
+        ho.fmin, ho.fmin_device = real_fmin, real_device
+        sys.argv, sys.path[:] = saved[0], saved[1]
+        atpe.set_transfer_store(saved[2])
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"examples: EI wrapper over the phase: eager launches "
+          f"{tally.launches}, recorded into graphs {tally.recorded}, graph "
+          f"replays {tally.replayed}; {time.perf_counter() - t_phase:.1f} s")
+    return tally.rows()
+
+
 def phase_card_tests():
     """``python -m pytest tests_torch_cuda`` in a subprocess: it must exit
     0 with every collected test passed."""
@@ -4164,23 +4294,38 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_build()
-    kernels = phase_ei_kernel(dev)
-    hosted = phase_suggest_step(dev)
-    fmin_launches = phase_fmin(dev)
-    liar_launches = phase_liar_batch(dev)
-    device_launches, solo_rates = phase_device_mode(dev, hosted)
-    fleet_launches, fleet_times = phase_fleet(dev, solo_rates)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall seconds printed and kept."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        print(f"phase {name}: {seconds[name]:.3f} s ({card})")
+        return out
+
+    timed("build", phase_build)
+    kernels = timed("ei_kernel", phase_ei_kernel, dev)
+    hosted = timed("suggest_step", phase_suggest_step, dev)
+    fmin_launches = timed("fmin", phase_fmin, dev)
+    liar_launches = timed("liar_batch", phase_liar_batch, dev)
+    device_launches, solo_rates = timed("device_mode", phase_device_mode,
+                                        dev, hosted)
+    fleet_launches, fleet_times = timed("fleet", phase_fleet, dev,
+                                        solo_rates)
     show = ShowSteps(card)
-    obs_launches = phase_obs(dev, show)
-    pipeline_launches = phase_pipeline(dev)
-    rest_launches = phase_tpe_rest(dev, hosted)
-    heads_launches, heads_err = phase_heads(dev)
-    dispatch_launches = phase_dispatch(dev)
-    netstore_launches = phase_netstore(dev)
-    service_launches = phase_service(dev, show)
-    phase_show(show)
-    phase_card_tests()
+    obs_launches = timed("obs", phase_obs, dev, show)
+    pipeline_launches = timed("pipeline", phase_pipeline, dev)
+    rest_launches = timed("tpe_rest", phase_tpe_rest, dev, hosted)
+    heads_launches, heads_err = timed("heads", phase_heads, dev)
+    dispatch_launches = timed("dispatch", phase_dispatch, dev)
+    netstore_launches = timed("netstore", phase_netstore, dev)
+    service_launches = timed("service", phase_service, dev, show)
+    timed("show", phase_show, show)
+    examples_launches = timed("examples", phase_examples, card)
+    timed("card_tests", phase_card_tests)
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 3) for k, v in seconds.items()}))
     print(f"total seconds {time.perf_counter() - t0:.1f}")
     rows = []
     for low, (name, source, replaces, _, _) in KERNELS.items():
@@ -4190,8 +4335,9 @@ def main():
         # steps, the cohort dispatches, obs's hosted runs, the pipeline
         # phase's runs, tpe_rest's hosted runs, the heads phase's
         # hosted runs, the dispatch phase's runs (K1 only), the
-        # netstore phase's server-side suggests and driven run, and the
-        # service phase's suggests, cohort windows and routed suggests.
+        # netstore phase's server-side suggests and driven run, the
+        # service phase's suggests, cohort windows and routed suggests,
+        # and the examples phase's scripts (K1 only).
         # A capture records
         # the launch into its graph without running it (graph_recorded);
         # graph_replays counts replays of graphs that hold the kernel, one
@@ -4208,7 +4354,8 @@ def main():
                                         heads_launches[low],
                                         dispatch_launches[low],
                                         netstore_launches[low],
-                                        service_launches[low]))
+                                        service_launches[low],
+                                        examples_launches[low]))
         n = (liar_launches[low] + (fmin_launches if low == "f32" else 0)
              + dev_launches)
         k = kernels[low]

@@ -55,6 +55,7 @@ from .exceptions import (  # noqa: F401
     HyperoptTpuError,
     InjectedFault,
     InvalidTrial,
+    NetstoreUnavailable,
     TransientEvaluationError,
 )
 from .device import fmin_device  # noqa: F401
@@ -97,5 +98,6 @@ __all__ = [
     "JOB_STATE_NEW", "JOB_STATE_RUNNING", "JOB_STATE_DONE",
     "JOB_STATE_ERROR", "JOB_STATE_CANCEL", "JOB_STATES",
     "AllTrialsFailed", "DuplicateLabel", "HyperoptTpuError", "InvalidTrial",
-    "InjectedFault", "TransientEvaluationError", "Apply",
+    "InjectedFault", "NetstoreUnavailable", "TransientEvaluationError",
+    "Apply",
 ]

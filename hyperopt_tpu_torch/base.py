@@ -111,6 +111,22 @@ def miscs_to_idxs_vals(miscs, keys=None):
     return idxs, vals
 
 
+def miscs_update_idxs_vals(miscs, idxs, vals, assert_all_vals_used=True):
+    """Scatter per-variable columns back into per-trial misc dicts."""
+    by_tid = {m["tid"]: m for m in miscs}
+    for m in miscs:
+        m["idxs"] = {k: [] for k in idxs}
+        m["vals"] = {k: [] for k in idxs}
+    for k, k_idxs in idxs.items():
+        for tid, v in zip(k_idxs, vals[k]):
+            if tid in by_tid:
+                by_tid[tid]["idxs"][k].append(tid)
+                by_tid[tid]["vals"][k].append(v)
+            elif assert_all_vals_used:
+                raise ValueError(f"unknown tid {tid} for label {k!r}")
+    return miscs
+
+
 def spec_from_misc(misc):
     """{label: scalar} point from one trial's misc (active params only)."""
     spec = {}
@@ -212,6 +228,10 @@ class Trials:
     @property
     def tids(self):
         return [t["tid"] for t in self._trials]
+
+    @property
+    def specs(self):
+        return [t["spec"] for t in self._trials]
 
     @property
     def results(self):
@@ -331,6 +351,20 @@ class Trials:
     def argmin(self):
         return spec_from_misc(self.best_trial["misc"])
 
+    def average_best_error(self, bandit=None):
+        """Mean loss of the ok trials within one standard deviation of the
+        best, weighted by inverse ``loss_variance`` (hyperopt's
+        ``Trials.average_best_error``)."""
+        results = [r for r in self.results if r.get("status") == STATUS_OK]
+        if not results:
+            raise AllTrialsFailed("no ok trials")
+        losses = np.asarray([r["loss"] for r in results], dtype=np.float64)
+        variances = np.asarray(
+            [max(r.get("loss_variance", 0.0), 1e-12) for r in results])
+        cutoff = losses.min() + np.sqrt(variances[losses.argmin()])
+        keep = losses <= cutoff
+        return float(np.average(losses[keep], weights=1.0 / variances[keep]))
+
     def trial_attachments(self, trial):
         tid = trial["tid"]
         trials_self = self
@@ -444,6 +478,12 @@ class Ctrl:
             return self.trials.attachments
         return self.trials.trial_attachments(self.current_trial)
 
+    def checkpoint(self, result=None):
+        """Write a partial ``result`` into the current trial."""
+        if self.current_trial is not None and result is not None:
+            self.current_trial["result"] = result
+            self.current_trial["refresh_time"] = coarse_utcnow()
+
     def should_stop(self) -> bool:
         """Cooperative cancellation: a long objective polls this and
         returns early when it turns True.  ``parallel.PoolTrials`` rebinds
@@ -453,6 +493,8 @@ class Ctrl:
 
 class Domain:
     """The user objective plus its compiled search space."""
+
+    rec_eval_print_node_on_error = False
 
     def __init__(self, fn: Callable, expr, workdir=None,
                  pass_expr_memo_ctrl=None, name=None, loss_target=None):
@@ -513,3 +555,10 @@ class Domain:
             for k, v in attachments.items():
                 ctrl.attachments[k] = v
         return dict_rval
+
+    def short_str(self):
+        return f"Domain{{{self.cs!r}}}"
+
+    # The name some of hyperopt's call sites use.
+    true_loss = staticmethod(lambda result, config=None: result.get(
+        "true_loss", result.get("loss")))

@@ -6,12 +6,15 @@ a schedule is armed for that point the call raises
 :class:`~hyperopt_tpu_torch.exceptions.InjectedFault`, otherwise it
 returns after one module-global boolean check.
 
-The port instruments ``objective.call`` (the top of ``Domain.evaluate``),
-``pipeline.dispatch`` (before each dispatch of the pipelined loop),
-``flight.dump`` (inside a flight-recorder dump), and ``store.write`` and
-``worker.evaluate`` (the file store, ``parallel/filestore.py``);
-:data:`FAULT_POINTS` keeps the JAX package's whole catalog, whose other
-points belong to slices not ported yet.
+Every point of :data:`FAULT_POINTS`, the JAX package's catalog, is
+instrumented where the JAX package has it: ``objective.call`` (the top of
+``Domain.evaluate``), ``pipeline.dispatch`` (before each dispatch of the
+pipelined loop), ``flight.dump`` (inside a flight-recorder dump),
+``store.write`` and ``worker.evaluate`` (the file store,
+``parallel/filestore.py``), ``rpc.connect``/``rpc.send``/``rpc.recv`` (the
+network store's client, ``parallel/netstore.py``), ``wal.write``/
+``wal.fsync``/``wal.replay`` (``service/wal.py``), ``replica.ship``
+(``service/replica.py``) and ``router.forward`` (``service/router.py``).
 
 Configuration::
 

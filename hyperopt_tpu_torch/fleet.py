@@ -39,8 +39,9 @@ Both halves take the TPE step's every keyword, ``multivariate`` and the
 sampler/split/fit lowerings included.  Meshes (``dispatch.py``): a cohort
 acquires its kernel through ``dispatch.get_kernel`` with the active mesh,
 so its lanes score a slice of the candidates per ``sp`` rank;
-``fmin_fleet(mesh=)`` splits the lanes over ``mesh["dp"]``.  Not in this
-slice: the service's cohort gate (the service slice).
+``fmin_fleet(mesh=)`` splits the lanes over ``mesh["dp"]``.  The
+service's cohort gate (``service/server.py::_CohortGate``) dispatches one
+cohort per window.
 """
 
 from __future__ import annotations

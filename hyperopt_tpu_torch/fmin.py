@@ -127,7 +127,8 @@ class FMinIter:
     def __init__(self, algo, domain, trials, rstate=None,
                  early_stop_fn=None, trials_save_file="", max_evals=None,
                  timeout=None, loss_threshold=None, show_progressbar=True,
-                 max_queue_len=1, trace_dir=None, asynchronous=None,
+                 verbose=False, max_queue_len=1, trace_dir=None,
+                 asynchronous=None,
                  poll_interval_secs=0.1, overlap_suggest=False,
                  overlap_depth=None, evaluators=None,
                  max_trial_retries=None):
@@ -152,6 +153,7 @@ class FMinIter:
         self.loss_threshold = loss_threshold
         self.start_time = time.time()
         self.show_progressbar = show_progressbar
+        self.verbose = verbose
         # A trial whose evaluation raises a transient error runs again on
         # the same point, up to this many times (misc.fail_count).
         self.max_trial_retries = max(0, int(max_trial_retries or 0))
@@ -651,7 +653,8 @@ def fmin(fn, space, algo=None, max_evals=None,
                     max_evals=max_evals, timeout=timeout,
                     loss_threshold=loss_threshold,
                     show_progressbar=show_progressbar and verbose,
-                    max_queue_len=max_queue_len, trace_dir=trace_dir,
+                    verbose=verbose, max_queue_len=max_queue_len,
+                    trace_dir=trace_dir,
                     overlap_suggest=overlap_suggest,
                     overlap_depth=overlap_depth, evaluators=evaluators,
                     max_trial_retries=max_trial_retries)

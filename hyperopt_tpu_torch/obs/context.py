@@ -4,10 +4,12 @@ Counterpart of ``hyperopt_tpu/obs/context.py``, unchanged: a run-scoped
 ``trace_id`` (16 hex chars, minted by the driver), the emitting side's
 ``span`` and the ``tid`` of the trial the work belongs to, bound
 thread-locally.  While a context is bound, :meth:`EventLog.emit` attaches
-``trace_id`` and ``trial`` to every event.  The port has no worker
-processes yet; the wire form (``"<trace_id>/<span>/<tid>"``, stamped into
-``doc["misc"]["trace"]`` by :func:`stamp_misc`) is the one the JAX package
-reads, so a later slice that ships trials to workers plugs in unchanged.
+``trace_id`` and ``trial`` to every event.  The wire form
+(``"<trace_id>/<span>/<tid>"``, stamped into ``doc["misc"]["trace"]`` by
+:func:`stamp_misc`) is the one the JAX package reads; the pool's children,
+the file store's workers (:func:`bind_doc`) and the network store's
+clients and server (:func:`wire_current`, :func:`adopt`) carry it across
+processes.
 
 Disarmed by default: every entry point returns after one module-global
 boolean check.  A :class:`~.trace.Tracer` with a ``trace_dir`` arms it for

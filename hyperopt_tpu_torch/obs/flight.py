@@ -7,7 +7,7 @@ postmortem bundle (``obs/bundle.py``):
 * an unhandled exception escaping ``fmin`` (:func:`on_crash`),
 * SIGTERM (the handler chains to the one installed before it),
 * an explicit :func:`dump` (``force=True`` bypasses the rate limit),
-* :func:`on_slo_fired`, kept for the service slice's SLO monitor.
+* :func:`on_slo_fired`, called by the SLO monitor (``obs/slo.py``).
 
 The directory and the rate limit (``min_interval_s``, default 30 s) are
 :func:`install`'s arguments; suppressed dumps bump ``flight.suppressed``.

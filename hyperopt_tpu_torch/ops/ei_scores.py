@@ -24,13 +24,16 @@ Three lowerings of the same function, as in the JAX package:
 kernels are compiled with ``nvcc`` at first use, one plain-C shared library
 per source, all sources at once, under ``build/hyperopt_tpu_torch/`` (named
 by the hash of the source), and bound with ``ctypes``.  The build holds a
-module lock, so threads of one process that first reach a kernel together
-build it once; the launch counts are bumped under a lock of their own.
+module lock and a lock file in the build directory, so threads, and
+processes sharing the checkout (a driver and its workers), that first reach
+a kernel together build it once; the launch counts are bumped under a lock
+of their own.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import math
 import os
@@ -121,26 +124,30 @@ def load_library(path, entries) -> ctypes.CDLL:
 
 def build() -> dict:
     """Compile every kernel library that is missing, one ``nvcc`` per
-    source, all started together; load them all.  Under a module lock: a
-    thread that arrives while another builds waits, then finds the
-    libraries built.  The temporary output is named by process and
-    thread, so builds of two processes never share one either.
+    source, all started together; load them all.  Under a module lock and
+    an exclusive ``flock`` on ``.build.lock`` in the build directory: a
+    thread or another process that arrives while one builds waits, then
+    finds the libraries built.  The temporary output is named by process
+    and thread.
 
     Returns ``{library: (path, seconds spent compiling it)}`` (0.0 for a
     library that already existed for its exact source)."""
     with _BUILD_LOCK:
-        return _build_locked()
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(_BUILD_DIR / ".build.lock", "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            return _build_locked()
 
 
 def _build_locked() -> dict:
-    """The body of :func:`build`; the caller holds ``_BUILD_LOCK``."""
+    """The body of :func:`build`; the caller holds ``_BUILD_LOCK`` and
+    the lock file."""
     started = {}
     for name, source in _SOURCES.items():
         path = _lib_path(name, source.read_bytes())
         if path.exists():
             started[name] = (path, None, None, 0.0)
             continue
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         proc = compile_library(source, tmp)
         started[name] = (path, tmp, proc, time.perf_counter())

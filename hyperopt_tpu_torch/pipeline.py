@@ -98,6 +98,10 @@ logger = logging.getLogger(__name__)
 #: FMinIter's synchronous loop (``run`` returns ``"fallback"``).
 _FALLBACK_AFTER = 3
 
+#: Bucket bounds in milliseconds of the ``*_ms`` histograms (the
+#: ``suggest.*_ms`` series'): 50 µs to ~26 s, two to a bucket.
+MS_BUCKETS = _MS_BUCKETS
+
 #: Seconds the drain waits for started evaluations to come back.
 _DRAIN_TIMEOUT_S = 30.0
 
@@ -127,13 +131,17 @@ class PipelinedExecutor:
     """Drives one :class:`~hyperopt_tpu_torch.fmin.FMinIter` through the
     pipelined loop.  Constructed by FMinIter when ``overlap_depth >= 1``
     (or ``overlap_suggest=True``) and the algo is dispatch-capable;
-    ``FMinIter._loop`` delegates here instead of ``run_one_batch``."""
+    ``FMinIter._loop`` delegates here instead of ``run_one_batch``.
+    ``execution`` ("thread" or "process") is handed to the evaluator,
+    :class:`~hyperopt_tpu_torch.parallel.pool.CompletionQueueEvaluator`."""
 
     def __init__(self, it, depth, evaluators, dispatch, materialize,
-                 handle_ready=None, start_transfer=None):
+                 handle_ready=None, start_transfer=None,
+                 execution: str = "thread"):
         self.it = it
         self.depth = max(1, int(depth))
         self.evaluators = max(1, int(evaluators))
+        self.execution = execution
         self._dispatch = dispatch
         self._materialize = materialize
         self._handle_ready = handle_ready
@@ -175,7 +183,8 @@ class PipelinedExecutor:
         it = self.it
         trials = it.trials
         reg = _metrics.registry()
-        ev = CompletionQueueEvaluator(it.domain, n_workers=self.evaluators)
+        ev = CompletionQueueEvaluator(it.domain, n_workers=self.evaluators,
+                                      execution=self.execution)
         self._ring.clear()
         self._next_tid = None
         self._open = 0
@@ -386,7 +395,7 @@ class PipelinedExecutor:
             wait_ms = (perf_counter() - t0) * 1e3
             reg.counter("pipeline.stall.suggest_bound_ms").inc(wait_ms)
             reg.histogram("pipeline.stall.suggest_bound_ms",
-                          buckets=_MS_BUCKETS).observe(wait_ms)
+                          buckets=MS_BUCKETS).observe(wait_ms)
         self._ring.popleft()
         self._eval_bound_counted = False
         reg.gauge("pipeline.occupancy").set(len(self._ring))

@@ -297,6 +297,10 @@ class ParamSpec:
     def is_log(self) -> bool:
         return self.kind in _LOG_KINDS
 
+    @property
+    def is_categorical_like(self) -> bool:
+        return self.kind in (RANDINT, CATEGORICAL)
+
 
 def _point_value(point: dict, label: str):
     """Scalar value of ``label`` in a point dict; unwraps length-1 sequences
@@ -726,6 +730,25 @@ class CompiledSpace:
         return self._walk(lambda pid: _point_value(point,
                                                    self.params[pid].label))
 
+    def active_path_pids(self, point: dict):
+        """pids of parameters live under assignment ``point`` (host-side)."""
+        out = []
+
+        def ok(spec):
+            for cpid, branch in spec.conditions:
+                try:
+                    v = _point_value(point, self.params[cpid].label)
+                except KeyError:
+                    return False
+                if int(v) != branch:
+                    return False
+            return True
+
+        for spec in self.params:
+            if ok(spec):
+                out.append(spec.pid)
+        return out
+
     def __repr__(self):
         return (f"CompiledSpace(P={self.n_params}, "
                 f"uf={len(self._uf)}, nf={len(self._nf)}, cat={len(self._cat)})")
@@ -790,3 +813,28 @@ def compile_space(space) -> CompiledSpace:
     else:
         _compile_cache.move_to_end(key)
     return cs
+
+
+def expr_to_config(space):
+    """Per-label distribution and activation conditions, the view
+    ``hyperopt/pyll_utils.py::expr_to_config`` gives of a space::
+
+        {label: {"dist": kind, "args": {...}, "conditions": (
+                    (gating_label, branch_index), ...)}}
+    """
+    cs = compile_space(space)
+    out = {}
+    for p in cs.params:
+        args = {k: getattr(p, k) for k in ("low", "high", "mu", "sigma", "q")
+                if getattr(p, k) is not None}
+        if p.kind == CATEGORICAL:
+            args["upper"] = p.n_options
+            if p.probs is not None:
+                args["p"] = p.probs
+        out[p.label] = {
+            "dist": p.kind,
+            "args": args,
+            "conditions": tuple((cs.params[cpid].label, branch)
+                                for cpid, branch in p.conditions),
+        }
+    return out

@@ -214,3 +214,71 @@ def test_concurrent_first_builds_compile_each_source_once(monkeypatch,
         == [False] * len(ei_mod._SOURCES) \
         + [True] * (n_threads - 1) * len(ei_mod._SOURCES)
 
+
+
+_BUILD_CHILD = r"""
+import sys, time
+from pathlib import Path
+from hyperopt_tpu_torch.ops import ei_scores as ei_mod
+
+build_dir, log = Path(sys.argv[1]), Path(sys.argv[2])
+ei_mod._BUILD_DIR = build_dir
+
+
+class _Proc:
+    returncode = 0
+
+    def __init__(self, out):
+        self.out = out
+
+    def communicate(self):
+        time.sleep(0.5)
+        self.out.write_bytes(b"lib")
+        return "stub nvcc", None
+
+
+def compile_stub(source, out):
+    with open(log, "a") as f:
+        f.write(source.name + "\n")
+    return _Proc(out)
+
+
+ei_mod.compile_library = compile_stub
+ei_mod.load_library = lambda path, entries: ("loaded", path.name)
+while not (build_dir / "go").exists():
+    time.sleep(0.01)
+out = ei_mod.build()
+print(sorted((k, v[0].name, v[1] > 0) for k, v in out.items()))
+"""
+
+
+def test_concurrent_first_builds_of_processes_compile_each_source_once(
+        tmp_path):
+    """Processes of one checkout that reach ``build()`` together (a driver
+    and its file-store workers) compile each source once: the lock file
+    in the build directory holds the others until the libraries stand.
+    ``nvcc`` and the loader are stubs that write to a shared log; the
+    children start together on a flag file."""
+    import subprocess
+    import sys
+    import time
+
+    build_dir, log = tmp_path / "build", tmp_path / "compiled.log"
+    build_dir.mkdir()
+    n_procs = 3
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _BUILD_CHILD, str(build_dir), str(log)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(n_procs)]
+    time.sleep(1.0)
+    (build_dir / "go").touch()
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    assert sorted(log.read_text().split()) == sorted(
+        p.name for p in ei_mod._SOURCES.values())
+    # Every process loaded the same libraries; one of them compiled.
+    lines = [o.strip().splitlines()[-1] for o, _ in outs]
+    names = {tuple((k, n) for k, n, _ in eval(line)) for line in lines}
+    assert len(names) == 1
+    assert sorted(any(c for _, _, c in eval(line)) for line in lines) \
+        == [False] * (n_procs - 1) + [True]

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and ``chip_smoke.py`` and the card's tests (``tests_torch_cuda/``)
-neither; and it reads none of the JAX package's environment switches
-(their prefix appears nowhere in its sources)."""
+package, and ``chip_smoke.py``, the card's tests (``tests_torch_cuda/``)
+and the port's examples (``examples_torch/``) neither; and it reads none
+of the JAX package's environment switches (their prefix appears nowhere
+in its sources)."""
 
 import ast
 import os
@@ -14,6 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "hyperopt_tpu_torch").rglob("*.py")) \
     + sorted((ROOT / "tests_torch_cuda").glob("*.py")) \
+    + sorted((ROOT / "examples_torch").glob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "chip_ei_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "hyperopt_tpu")
 # The JAX package's environment switches; the port's are arguments and
