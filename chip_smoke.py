@@ -168,7 +168,21 @@ Phases, each fatal on failure:
                the registry's OpenMetrics text round-trips through the
                strict parser, the default SLOs evaluate.  The mesh is
                unregistered and the process group destroyed at the end.
-13. netstore  the network store at the same width: (a) a token-protected
+13. contract  ``graft_entry_torch.py`` on the card: (a) ``entry()``'s
+               step (the flagship space, 100 trials in the 128 bucket,
+               1,024 candidates) eagerly, K1 once; (b) the same ``fn``
+               captured in a CUDA graph (K1 recorded once) and replayed
+               10 times, each replay's row and mask equal to the eager
+               ones bit for bit, and K1 once per replay under the
+               profiler; ms per replay against ms per eager step; (c) the
+               card's row against the CPU's from the same uniforms: equal
+               except where the two winners' EI gap is at most 1e-3; (d)
+               ``dryrun_multichip(1)`` on a world-1 NCCL mesh: the sharded
+               liar batch, multi-start, ``fmin_device(mesh=)`` and the
+               global mesh, each equal to the local kernel's, and its
+               ``mesh=``, ``trials evaluated`` and ``global mesh OK``
+               lines.
+14. netstore  the network store at the same width: (a) a token-protected
                ``StoreServer`` in a thread, the flagship domain published
                on cuda, the 1,000-trial history inserted and read back
                through ``NetTrials`` in binary frames; (b) 16
@@ -189,7 +203,7 @@ Phases, each fatal on failure:
                tid claimed twice, every worker exits 0, K1 once per
                post-startup suggest; (f) ``GET /metrics`` negotiated as
                OpenMetrics passes the strict parser.
-14. service   the service tier at the same width: (a) a ``ServiceServer``
+15. service   the service tier at the same width: (a) a ``ServiceServer``
                in a thread (a table of 8 tenants, ``fsync="always"``, its
                WAL in a temporary directory, a 200 ms cohort window); each
                tenant publishes the flagship domain on cuda and inserts its
@@ -210,7 +224,7 @@ Phases, each fatal on failure:
                ``state_bytes()`` and next suggest are unchanged, and a
                primary shut down is failed over to its replica with no
                trial lost.
-15. show      the port's ``show`` on the card's own artifacts, each step
+16. show      the port's ``show`` on the card's own artifacts, each step
                where the phase before it leaves them: (a) in obs (c),
                ``show trace`` over the hosted ``fmin(trace_dir=)`` from
                the 1,000-trial history (phases cover >= 95% of wall, the
@@ -228,7 +242,7 @@ Phases, each fatal on failure:
                analyzers need only the stdlib): exit 0, 0 new.  Each
                step's wall time beside the card, and a ``show json:``
                line.
-16. examples  every ``examples_torch/`` script on the card, in this
+17. examples  every ``examples_torch/`` script on the card, in this
                process through ``runpy``, at its own budget and with no
                argument (06 only where scikit-learn is installed; the
                phase says so when it is not): each prints a result line
@@ -238,7 +252,7 @@ Phases, each fatal on failure:
                NCCL mesh; 11 replays its captured step once per trial with
                no eager step.  Per script: wall seconds, best loss, K1
                launches, and for 11 the replays.
-17. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
+18. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
                and every collected test passed.
 
 Prints the card's name and power limit first and again before the
@@ -277,6 +291,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import graft_entry_torch as graft  # noqa: E402
 import hyperopt_tpu_torch as ho  # noqa: E402
 from hyperopt_tpu_torch import (  # noqa: E402
     base, device, fleet, history, hp, tpe)
@@ -397,6 +412,8 @@ DISPATCH_STARTS = 8
 DISPATCH_DRIVER = 64
 DISPATCH_WORKERS = 2
 DISPATCH_OBS_RUN = 256
+# contract: replays of the captured entry() step.
+CONTRACT_REPLAYS = 10
 # netstore: server-side proposals at seeds 0..15 (b), the seed of each
 # head's one proposal (c), timed calls per turn (d), trials of the driven
 # run after startup and its worker processes (e), the server's token.
@@ -3265,6 +3282,180 @@ def phase_dispatch(dev):
     return tally.rows()
 
 
+def entry_sheets(kern, noise, vals, active, loss, ok):
+    """Each column's EI sheet in one ``graft_entry_torch.entry`` step:
+    ``[(pids, ei[C, n_cand])]`` per continuous group, then the
+    categorical sheet."""
+    below, above = kern._split(loss, ok, graft.GAMMA)
+    out = []
+    for g, gt, (uc, u) in zip(kern.groups, kern._gt, noise["cont"]):
+        _, ei = kern._cont_scores(g, gt, vals, active, below, above,
+                                  graft.PRIOR_WEIGHT, uc, u)
+        out.append((gt.pids, ei.cpu()))
+    if len(kern.cat_pids):
+        _, score = kern._cat_scores(noise["cat"], vals, active, below, above,
+                                    graft.PRIOR_WEIGHT)
+        out.append((kern._cat.pids, score.cpu()))
+    return out
+
+
+def rows_near_equal(what, got, want, sheets_got, sheets_want):
+    """The card's row ``got`` against the CPU's ``want``: where a column's
+    EI argmax agrees the values agree (exactly for integer columns, else
+    to 1e-5), and where it differs the CPU scores the two winners within
+    ``MARGIN``.  The sheets are not held to each other elementwise: the
+    card's and the CPU's candidates differ in the last bits of their
+    draws (3.05e-5 at most in this step on an H100), which moves EI by up
+    to ~3e-4; :func:`entry_k1_calls` holds K1 itself to its plain version
+    on the card's own rows.  Returns the number of near-tie columns."""
+    cs = compile_space(graft._flagship_space())
+    near = 0
+    for (pids, eg), (_, ec) in zip(sheets_got, sheets_want):
+        ig, ic = eg.argmax(-1), ec.argmax(-1)
+        for j, pid in enumerate(pids.tolist()):
+            g, w = float(got[pid]), float(want[pid])
+            if ig[j] != ic[j]:
+                gap = float(ec[j, ic[j]] - ec[j, ig[j]])
+                if gap > MARGIN:
+                    fail(f"{what}: column {cs.params[pid].label} picks "
+                         f"candidate {int(ig[j])} on the card and "
+                         f"{int(ic[j])} on the CPU, EI gap {gap:.3g}")
+                near += 1
+            elif (g != w) if cs.params[pid].is_int else \
+                    abs(g - w) > 1e-5 * max(1.0, abs(w)):
+                fail(f"{what}: column {cs.params[pid].label} is {g!r} on "
+                     f"the card and {w!r} on the CPU")
+    return near
+
+
+def entry_k1_calls(fn, args):
+    """Run ``fn(*args)`` once with ``tpe.ei_scores`` spied on: each K1
+    call of the step as ``(rows, kwargs, out)``, the rows as the path
+    hands them to the kernel."""
+    calls = []
+    real = tpe.ei_scores
+
+    def spy(*rows, **kw):
+        out = real(*rows, **kw)
+        calls.append((rows, kw, out))
+        return out
+
+    tpe.ei_scores = spy
+    try:
+        fn(*args)
+    finally:
+        tpe.ei_scores = real
+    return calls
+
+
+def phase_contract(dev):
+    """``graft_entry_torch``'s entry points on the card: (a) ``entry()``'s
+    step eagerly (K1 once), (b) the same ``fn`` captured in a CUDA graph
+    (K1 recorded once) and replayed ``CONTRACT_REPLAYS`` times, each replay
+    equal to the eager row bit for bit and running K1 (profiler), (c) K1
+    held to its plain version by :func:`compare` on the rows the step
+    hands it, and the card's row and mask against the CPU's from the same
+    uniforms with the near-tie rule, (d) ``dryrun_multichip(1)`` on a
+    world-1 NCCL mesh.  Returns
+    ``{lowering: (eager launches, launches recorded into graphs, replays
+    of graphs that hold the kernel)}``."""
+    from hyperopt_tpu_torch import dispatch
+
+    t_phase = time.perf_counter()
+    tally = Tally()
+    # (a) the step, eagerly.
+    fn, args = graft.entry()
+    t0 = time.perf_counter()
+    row, act = tally.counted("f32", lambda: fn(*args))
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    if tally.launches != {"f32": 1, "bf16": 0, "mxu": 0}:
+        fail(f"contract (a): the eager step launched {tally.launches}")
+    if tuple(row.shape) != (53,) or tuple(act.shape) != (53,) \
+            or not bool(torch.isfinite(row[act]).all()):
+        fail(f"contract (a): row {tuple(row.shape)}, act "
+             f"{tuple(act.shape)}, finite "
+             f"{bool(torch.isfinite(row[act]).all())}")
+    step_ms = cuda_ms(lambda: fn(*args), reps=10, warmup=2, inner=1)
+    print(f"contract (a): entry() step on the card: row/act (53,), K1 "
+          f"once; first call {eager_ms:.2f} ms wall, steady "
+          f"{step_ms:.3f} ms by CUDA events")
+
+    # (b) captured once, replayed CONTRACT_REPLAYS times.
+    graph, (g_row, g_act) = tally.counted(
+        "f32", lambda: graft.capture(fn, args))
+    if ei_mod.ei_scores.recorded_by != {"f32": 1, "bf16": 0, "mxu": 0} \
+            or ei_mod.ei_scores.launches_by["f32"] != 2:
+        fail(f"contract (b): the capture launched "
+             f"{ei_mod.ei_scores.launches_by} and recorded "
+             f"{ei_mod.ei_scores.recorded_by}")
+    for i in range(CONTRACT_REPLAYS):
+        g_row.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not (torch.equal(g_row, row) and torch.equal(g_act, act)):
+            fail(f"contract (b): replay {i} differs from the eager row")
+    tally.replayed["f32"] += CONTRACT_REPLAYS
+    _, kernels = profiled(lambda: [graph.replay()
+                                   for _ in range(CONTRACT_REPLAYS)])
+    tally.replayed["f32"] += CONTRACT_REPLAYS
+    ran = kernel_counts(kernels)
+    if ran != {"f32": CONTRACT_REPLAYS, "bf16": 0, "mxu": 0}:
+        fail(f"contract (b): {CONTRACT_REPLAYS} profiled replays ran the EI "
+             f"kernels {ran}")
+    replay_ms = cuda_ms(graph.replay, reps=10, warmup=2, inner=1)
+    print(f"contract (b): captured once (2 warm-up launches, K1 recorded "
+          f"once); {CONTRACT_REPLAYS} replays equal the eager row and mask "
+          f"bit for bit; K1 ran {ran['f32']} times in {CONTRACT_REPLAYS} "
+          f"profiled replays; {replay_ms:.3f} ms per replay against "
+          f"{step_ms:.3f} ms per eager step (CUDA events)")
+
+    # (c) K1 against its plain version on the rows the step hands it;
+    # the card's row and mask against the CPU's from the same uniforms.
+    calls = entry_k1_calls(fn, args)
+    if len(calls) != 1:
+        fail(f"contract (c): the step called K1 {len(calls)} times")
+    ((rows, kw, got),) = calls
+    ref = ei_mod.ei_scores_reference(*rows, **kw)
+    err, used, k1_near = compare(got, ref, "contract (c) K1", TOL["f32"])
+    fn_c, args_c = graft.entry(device="cpu")
+    row_c, act_c = fn_c(*args_c)
+    if not torch.equal(act.cpu(), act_c):
+        fail("contract (c): the card's activity mask differs from the CPU's")
+    cs = compile_space(graft._flagship_space())
+    sheets = [entry_sheets(tpe.get_kernel(cs, 128, 1024, 25, device=d), *a)
+              for d, a in ((dev, args), (torch.device("cpu"), args_c))]
+    near = rows_near_equal("contract (c)", row.cpu(), row_c, *sheets)
+    print(f"contract (c): K1 at entry()'s shape {tuple(rows[0].shape)} "
+          f"(K_b={rows[1].shape[1]}, K_a={rows[4].shape[1]}) against its "
+          f"plain version on the same rows: max_abs_err={err:.3g} "
+          f"tol={TOL['f32']:g} tol_used={used:.3g} "
+          f"near_tie_columns={k1_near}; the card's row and mask equal the "
+          f"CPU's from the same uniforms ({near} near-tie columns, EI gap "
+          f"<= {MARGIN})")
+
+    # (d) the mesh step on a world-1 NCCL group.
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        tally.counted("f32", lambda: graft.dryrun_multichip(1))
+    dry_s = time.perf_counter() - t0
+    text = out.getvalue()
+    print("".join(f"  | {line}\n" for line in text.splitlines()), end="")
+    need = ("nccl on cuda", "mesh={'dp': 1, 'sp': 1}", "trials evaluated",
+            "global mesh OK")
+    missing = [n for n in need if n not in text]
+    if missing or dispatch.active_mesh() is not None:
+        fail(f"contract (d): dryrun_multichip(1) printed no {missing}, "
+             f"mesh left {dispatch.active_mesh()}")
+    print(f"contract (d): dryrun_multichip(1) on NCCL in {dry_s:.2f} s: "
+          f"sharded liar batch, multi-start, fmin_device(mesh=) and the "
+          f"global mesh, each equal to the local kernel's")
+    print(f"contract: EI wrapper over the phase: eager launches "
+          f"{tally.launches}, recorded into graphs {tally.recorded}, graph "
+          f"replays {tally.replayed}; {time.perf_counter() - t_phase:.1f} s")
+    return tally.rows()
+
 def net_counter(name):
     return metrics.registry().snapshot()["counters"].get(name, 0.0)
 
@@ -4319,6 +4510,7 @@ def main():
     rest_launches = timed("tpe_rest", phase_tpe_rest, dev, hosted)
     heads_launches, heads_err = timed("heads", phase_heads, dev)
     dispatch_launches = timed("dispatch", phase_dispatch, dev)
+    contract_launches = timed("contract", phase_contract, dev)
     netstore_launches = timed("netstore", phase_netstore, dev)
     service_launches = timed("service", phase_service, dev, show)
     timed("show", phase_show, show)
@@ -4335,6 +4527,7 @@ def main():
         # steps, the cohort dispatches, obs's hosted runs, the pipeline
         # phase's runs, tpe_rest's hosted runs, the heads phase's
         # hosted runs, the dispatch phase's runs (K1 only), the
+        # contract phase's entry step, capture and dry run (K1 only), the
         # netstore phase's server-side suggests and driven run, the
         # service phase's suggests, cohort windows and routed suggests,
         # and the examples phase's scripts (K1 only).
@@ -4342,9 +4535,9 @@ def main():
         # the launch into its graph without running it (graph_recorded);
         # graph_replays counts replays of graphs that hold the kernel, one
         # kernel run each (for all lanes) by the profiler's count in
-        # device_mode (c), (d), fleet (c), obs (a) and tpe_rest's
-        # counted runs.  fleet_ms: the kernel through its wrapper at 31·L
-        # columns.
+        # device_mode (c), (d), fleet (c), obs (a), tpe_rest's
+        # counted runs and the contract phase's replays.  fleet_ms: the
+        # kernel through its wrapper at 31·L columns.
         dev_launches, dev_recorded, dev_replays = (
             sum(parts) for parts in zip(device_launches[low],
                                         fleet_launches[low],
@@ -4353,6 +4546,7 @@ def main():
                                         rest_launches[low],
                                         heads_launches[low],
                                         dispatch_launches[low],
+                                        contract_launches[low],
                                         netstore_launches[low],
                                         service_launches[low],
                                         examples_launches[low]))

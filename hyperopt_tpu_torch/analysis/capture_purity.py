@@ -11,7 +11,8 @@ overlaps the objective with the next suggest; a sync there serializes
 the loop without an error anywhere.  These rules find both from source,
 on a machine with no card.
 
-Entry points:
+Entry points, in the package and in the root scripts
+(``Project.scripts``):
 
 * the body of every ``with torch.cuda.graph(...):`` block;
 * every function or method named ``suggest_dispatch`` (the hosted
@@ -462,7 +463,7 @@ def _check(findings, rel, node, cls, kind, outer, index):
 
 def check(project) -> list:
     findings: list = []
-    for module in project.package_modules():
+    for module in project.package_modules() + project.script_modules():
         index = _ModuleIndex(module)
         entries = _entry_points(index)
         if not entries:

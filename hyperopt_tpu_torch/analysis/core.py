@@ -81,8 +81,9 @@ class Project:
     #: Analyzed package prefix (checkers scope rules to it).
     package = "hyperopt_tpu_torch/"
     #: The port's root scripts: parsed beside the package (the artifact
-    #: rule covers them; the package-scoped rules do not).
-    scripts = ("chip_smoke.py", "chip_ei_ab.py")
+    #: and capture-purity rules cover them; the package-scoped rules do
+    #: not).
+    scripts = ("chip_smoke.py", "chip_ei_ab.py", "graft_entry_torch.py")
     #: Text files the checkers read: the port's own catalog, the JAX
     #: package's API reference (read-only: the names the port keeps) and
     #: the test holding the port's artifact schema guards.
@@ -148,6 +149,11 @@ class Project:
         """Modules under the analyzed package, sorted by path."""
         return [m for rel, m in sorted(self.modules.items())
                 if rel.startswith(self.package)]
+
+    def script_modules(self):
+        """The root scripts that were parsed, in :attr:`scripts` order."""
+        return [self.modules[rel] for rel in self.scripts
+                if rel in self.modules]
 
     def module(self, rel: str):
         return self.modules.get(rel)

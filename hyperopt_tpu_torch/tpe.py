@@ -97,9 +97,11 @@ from .space import (
     resolve_device,
 )
 
-#: Functions that run under device mode's CUDA graph capture, called
-#: from another module: the capture-purity analyzer starts there.
+#: Functions that run under a CUDA graph capture (device mode's, and
+#: ``graft_entry_torch.capture`` of ``entry()``'s step), called from
+#: another module: the capture-purity analyzer starts there.
 CAPTURED_ENTRY_POINTS = (
+    "_TpeKernel._suggest_one_tel",
     "_TpeKernel._suggest_lanes",
     "_TpeKernel.draw_noise",
     "stack_noise",

@@ -395,6 +395,24 @@ def test_cp_same_module_reach_and_declared_entry_points():
     assert [(f.rule, f.symbol) for f in found] == [("CP001", "_pick")]
 
 
+def test_cp_walks_capture_bodies_in_the_root_scripts():
+    """A ``torch.cuda.graph`` body in a root script of ``Project.scripts``
+    is an entry point; the same body in another root file is not."""
+    src = ("import torch\n"
+           "def capture(x):\n"
+           "    graph = torch.cuda.CUDAGraph()\n"
+           "    with torch.cuda.graph(graph):\n"
+           "        y = torch.zeros(4)\n"
+           "        n = y.sum().item()\n"
+           "    return graph, n\n")
+    analysis = port()
+    assert "graft_entry_torch.py" in analysis.Project.scripts
+    hits = cp({"graft_entry_torch.py": src}, "CP001")
+    assert [(f.file, f.symbol) for f in hits] == [
+        ("graft_entry_torch.py", "capture")]
+    assert not run_port("capture-purity", {"other_root.py": src})
+
+
 def test_cp_declared_entry_points_of_the_port_resolve():
     """Every ``CAPTURED_ENTRY_POINTS`` of the port names a function of its
     module, and the captured step's modules all declare theirs."""

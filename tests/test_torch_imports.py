@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and ``chip_smoke.py``, the card's tests (``tests_torch_cuda/``)
-and the port's examples (``examples_torch/``) neither; and it reads none
-of the JAX package's environment switches (their prefix appears nowhere
-in its sources)."""
+package, and ``chip_smoke.py``, ``graft_entry_torch.py``, the card's tests
+(``tests_torch_cuda/`` and the ladders they share, ``tests/torch_ladders.py``)
+and the port's examples (``examples_torch/``) neither; and it reads none of the JAX package's environment switches
+(their prefix appears nowhere in its sources)."""
 
 import ast
 import os
@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "hyperopt_tpu_torch").rglob("*.py")) \
     + sorted((ROOT / "tests_torch_cuda").glob("*.py")) \
     + sorted((ROOT / "examples_torch").glob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "chip_ei_ab.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_ei_ab.py",
+       ROOT / "graft_entry_torch.py", ROOT / "tests" / "torch_ladders.py"]
 FORBIDDEN = ("jax", "jaxlib", "hyperopt_tpu")
 # The JAX package's environment switches; the port's are arguments and
 # setters.
@@ -59,6 +60,7 @@ def test_imports_with_jax_blocked():
         "for name in ('jax', 'jaxlib', 'hyperopt_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import hyperopt_tpu_torch, hyperopt_tpu_torch.convert, chip_smoke\n"
+        "import graft_entry_torch\n"
         "import hyperopt_tpu_torch.ops.ei_scores, hyperopt_tpu_torch.history\n"
         "import hyperopt_tpu_torch.device, hyperopt_tpu_torch.fleet\n"
         "import hyperopt_tpu_torch.obs, hyperopt_tpu_torch.obs.devtel\n"
@@ -97,6 +99,7 @@ def test_imports_with_jax_blocked():
         "import test_torch_cuda_pipeline, test_torch_cuda_tpe_rest\n"
         "import test_torch_cuda_backends, test_torch_cuda_dispatch\n"
         "import test_torch_cuda_netstore, test_torch_cuda_service\n"
+        "import test_torch_cuda_contract, test_torch_cuda_tpe_longrun\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hyperopt_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "assert 'matplotlib' not in sys.modules\n"
