@@ -67,6 +67,7 @@ import torch
 from . import base, rand
 from . import tpe as _tpe
 from .obs import costs as _costs
+from .obs import trace as _trace
 from .obs.metrics import kernel_cache_event
 from .obs.metrics import registry as _metrics_registry
 from .space import CompiledSpace, make_generator, resolve_device
@@ -380,14 +381,17 @@ def get_kernel(cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
         hit = k in cache
         if not hit:
             t0 = perf_counter()
-            cache[k] = ShardedTpeKernel(cs, n_cap, n_cand, lf, mesh, split,
-                                        cat_prior, dev, ei_impl,
-                                        ei_precision, ei_topm, multivariate,
-                                        comp_sampler, split_impl, fused_step)
+            with _trace.span("tpe.kernel_build"):
+                cache[k] = ShardedTpeKernel(
+                    cs, n_cap, n_cand, lf, mesh, split, cat_prior, dev,
+                    ei_impl, ei_precision, ei_topm, multivariate,
+                    comp_sampler, split_impl, fused_step)
+            build_s = perf_counter() - t0
+            _metrics_registry().counter("tpe.kernel_build_ms").inc(
+                build_s * 1e3)
             cache[k].cost_key = k
             _costs.record_compile("tpe_sharded", k, n_cap=n_cap,
-                                  P=cs.n_params, m=1,
-                                  compile_s=perf_counter() - t0)
+                                  P=cs.n_params, m=1, compile_s=build_s)
         kern = cache[k]
         if kern.mesh is not mesh:
             kern.bind(mesh)

@@ -26,6 +26,10 @@ and ``early_stop`` spans of each batch and writes ``loop_trace.json``,
 ``loop_events.jsonl``, ``chrome_trace.json`` and the ``torch.profiler``
 export ``profiler_trace.json`` there; an exception escaping the loop
 triggers the flight recorder when it is installed (``obs/flight.py``).
+The loop's spans are spans of the program's span store
+(``obs/trace.py``), which also records them without a trace dir while a
+``torch.profiler`` session records; a batch's spans carry its first new
+trial id as their request id.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from .exceptions import AllTrialsFailed, is_transient
 from .obs import context as _context
 from .obs import flight as _flight
 from .obs import metrics as _metrics
+from .obs import trace as _trace
 from .obs.events import EVENTS
 from .obs.trace import NullTracer, Tracer
 from .space import compile_space, resolve_device
@@ -309,10 +314,14 @@ class FMinIter:
                      if self.max_evals is not None else self.max_queue_len)
         n_to_enqueue = min(self.max_queue_len - qlen, remaining)
         tracer = self.tracer
+        request = None
         if n_to_enqueue > 0:
             with tracer.span("suggest"):
                 seed = int(self.rstate.integers(2 ** 31 - 1))
                 new_ids = trials.new_trial_ids(n_to_enqueue)
+                # The batch's spans carry its first new trial id.
+                request = new_ids[0] if len(new_ids) else None
+                _trace.set_request(request)
                 trials.refresh()
                 new_trials = self.algo(new_ids, self.domain, trials, seed)
                 EVENTS.emit("suggest",
@@ -335,7 +344,7 @@ class FMinIter:
                 time.sleep(self.poll_interval_secs)
                 trials.refresh()
         else:
-            with tracer.span("evaluate"):
+            with tracer.span("evaluate", request=request):
                 self.serial_evaluate()
         with tracer.span("save"):
             self._save_trials()

@@ -45,6 +45,8 @@ from pathlib import Path
 
 import torch
 
+from ..obs.metrics import registry as _metrics_registry
+
 #: Functions that run under device mode's CUDA graph capture, called
 #: from another module: the capture-purity analyzer starts there.
 CAPTURED_ENTRY_POINTS = (
@@ -79,6 +81,8 @@ _COUNT_LOCK = threading.Lock()
 #: Compiler report (registers, shared memory, spills) of each library
 #: built by this process.
 build_log: dict = {}
+# Seconds the build() calls of this process spent compiling or loading.
+_built_s = 0.0
 
 
 def lowering(mxu=False, bf16=False) -> str:
@@ -131,12 +135,28 @@ def build() -> dict:
     and thread.
 
     Returns ``{library: (path, seconds spent compiling it)}`` (0.0 for a
-    library that already existed for its exact source)."""
+    library that already existed for its exact source).  A call that
+    compiled or loaded a library adds its time to the counter
+    ``tpe.kernel_build_ms`` and to :func:`build_seconds`."""
+    global _built_s
     with _BUILD_LOCK:
+        t0 = time.perf_counter()
+        loaded = len(_libs)
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with open(_BUILD_DIR / ".build.lock", "a") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
-            return _build_locked()
+            out = _build_locked()
+        if len(_libs) > loaded or any(sec for _, sec in out.values()):
+            dt = time.perf_counter() - t0
+            _built_s += dt
+            _metrics_registry().counter("tpe.kernel_build_ms").inc(dt * 1e3)
+        return out
+
+
+def build_seconds() -> float:
+    """Seconds this process's :func:`build` calls spent compiling and
+    loading the kernel libraries."""
+    return _built_s
 
 
 def _build_locked() -> dict:

@@ -11,7 +11,7 @@ Usage::
 
     hyperopt-tpu-torch-show --root /shared/exp --exp-key e1
     hyperopt-tpu-torch-show --pickle trials.pkl [--plot history.png]
-    hyperopt-tpu-torch-show trace /tmp/trace      # per-phase span table
+    hyperopt-tpu-torch-show trace /tmp/trace      # span table and tree
     hyperopt-tpu-torch-show trace --merge /tmp/driver /tmp/worker0 \
         -o merged_trace.json                      # fleet Perfetto trace
     hyperopt-tpu-torch-show live http://host:8999 [--token ...] [--once]
@@ -147,6 +147,113 @@ def summarize_trace(trace_dir: str, out=None) -> None:
     if os.path.exists(chrome):
         print(f"chrome trace: {chrome} (load in Perfetto / "
               f"chrome://tracing)", file=out)
+
+
+#: Chrome-export categories of the card's work in ``profiler_trace.json``.
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def span_idle(events, names):
+    """The card's idle time inside each innermost program span: ``{name:
+    seconds}`` from one profiler Chrome export's ``traceEvents``, all on
+    that file's one clock.
+
+    The program's spans are the complete (``"X"``) host events named in
+    ``names``; the card's work is the events of
+    :data:`DEVICE_CATEGORIES`.  Over the window from the first span's
+    start to the last span's end, every moment when no device event runs
+    goes to the shortest span open then, on any thread; a moment inside
+    no span goes to ``"(no span)"``.  Empty when the file holds no device
+    event or no span."""
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0), e["name"]) for e in events
+             if e.get("ph") == "X" and e.get("name") in names
+             and e.get("cat") not in DEVICE_CATEGORIES]
+    dev = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES)
+    if not spans or not dev:
+        return {}
+    lo = min(a for a, _, _ in spans)
+    hi = max(b for _, b, _ in spans)
+    idle, edge = [], lo
+    for a, b in dev:
+        if a > edge:
+            idle.append((edge, min(a, hi)))
+        edge = max(edge, b)
+        if edge >= hi:
+            break
+    if edge < hi:
+        idle.append((edge, hi))
+    marks = [(t, d, i) for i, (a, b, _) in enumerate(spans)
+             for t, d in ((a, 1), (b, -1))]
+    marks += [(t, d, -1) for a, b in idle if b > a
+              for t, d in ((a, 1), (b, -1))]
+    marks.sort(key=lambda m: m[0])
+    out = defaultdict(float)
+    open_spans, idle_now, prev = set(), 0, None
+    for t, d, i in marks:
+        if idle_now and t > prev:
+            inner = min(open_spans, default=None,
+                        key=lambda j: spans[j][1] - spans[j][0])
+            label = "(no span)" if inner is None else spans[inner][2]
+            out[label] += (t - prev) * 1e-6
+        if i < 0:
+            idle_now += d
+        elif d > 0:
+            open_spans.add(i)
+        else:
+            open_spans.discard(i)
+        prev = t
+    return dict(out)
+
+
+def summarize_spans(trace_dir: str, out=None) -> None:
+    """The operator's view of the program's spans in a trace directory:
+    the span tree of ``loop_trace.json`` (each name under its parent, with
+    count, total, self and mean), and, when ``profiler_trace.json`` holds
+    the card's work, the card's idle time inside each innermost span
+    (:func:`span_idle`).  Prints nothing for a ``loop_trace.json`` without
+    parents."""
+    out = out if out is not None else sys.stdout
+    path = os.path.join(trace_dir, "loop_trace.json")
+    if not os.path.exists(path):
+        return
+    with open(path) as f:
+        doc = json.load(f)
+    spans = {k: v for k, v in doc.items() if isinstance(v, dict)
+             and "total_s" in v and "parent" in v}
+    if not spans:
+        return
+    kids = defaultdict(list)
+    for name, rec in spans.items():
+        parent = rec["parent"] if rec["parent"] in spans else None
+        kids[parent].append(name)
+    print(f"{'span tree':<28s} {'count':>7s} {'total_s':>10s} "
+          f"{'self_s':>10s} {'mean_ms':>9s}", file=out)
+
+    def walk(parent, depth):
+        for name in sorted(kids[parent], key=lambda n: -spans[n]["total_s"]):
+            rec = spans[name]
+            label = "  " * depth + name
+            print(f"{label:<28s} {rec['count']:>7d} {rec['total_s']:>10.4f} "
+                  f"{rec.get('self_s', rec['total_s']):>10.4f} "
+                  f"{rec['mean_ms']:>9.3f}", file=out)
+            walk(name, depth + 1)
+
+    walk(None, 0)
+    prof = os.path.join(trace_dir, "profiler_trace.json")
+    if not os.path.exists(prof):
+        return
+    with open(prof) as f:
+        events = json.load(f).get("traceEvents", [])
+    idle = span_idle(events, set(spans))
+    if not idle:
+        return
+    total = sum(idle.values())
+    print(f"card idle inside the innermost span ({total:.4f} s, from "
+          f"profiler_trace.json):", file=out)
+    for name, sec in sorted(idle.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:<26s} {sec:>10.4f} s {100.0 * sec / total:>6.1f}%",
+              file=out)
 
 
 # -- cross-process trace stitching ------------------------------------------
@@ -822,6 +929,7 @@ def main(argv=None):
         if targs.trace_dir is None:
             tp.error("a trace dir (or --merge DIR...) is required")
         summarize_trace(targs.trace_dir)
+        summarize_spans(targs.trace_dir)
         return 0
 
     if argv and argv[0] == "wal":

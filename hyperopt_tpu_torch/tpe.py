@@ -72,9 +72,11 @@ import torch
 from . import base, history, rand
 from .history import _padded_history
 from .obs import costs as _costs
+from .obs import trace as _trace
 from .obs.metrics import kernel_cache_event
 from .obs.metrics import registry as _metrics_registry
 from .ops.ei_scores import MAX_COLUMNS, ei_scores
+from .ops.ei_scores import build_seconds as ei_build_seconds
 from .ops.fixed_order import prefix_sum, tree_sum
 from .ops.gmm import (gmm_log_qmass, gmm_sample, gumbel_pick, icdf_pick,
                       onehot_lookup, truncate_mixture)
@@ -310,6 +312,8 @@ class _TpeKernel:
         # kernel-cache and cost rows of suggest_fleet_seeded.
         self._fleet_tiers = set()
         self._tiers_lock = threading.Lock()
+        # Whether a hosted step ran (tpe.cold_step_ms times the first).
+        self.stepped = False
 
         cont_q, cont_n, cat = [], [], []
         for s in cs.params:
@@ -645,33 +649,39 @@ class _TpeKernel:
         winner; with ``multivariate``, the winning vector's joint score and
         the vectors tying it (:meth:`_joint_winner`)."""
         n_lanes = loss.shape[0]
-        if noise is None:
-            gens = generators if generators is not None else [None] * n_lanes
-            noise = stack_noise([self.draw_noise(g) for g in gens])
-        below, above = self._split(loss, ok, gamma)
-        dev = self.device
-        row = torch.zeros((n_lanes, self.cs.n_params), dtype=torch.float32,
-                          device=dev)
-        ei_best = torch.full((n_lanes,), -math.inf, dtype=torch.float32,
-                             device=dev)
-        ei_ties = torch.zeros((n_lanes,), dtype=torch.int64, device=dev)
-        cols = []
-        for g, gt, (uc, u) in zip(self.groups, self._gt, noise["cont"]):
-            v, ei = self._cont_scores(g, gt, vals, active, below, above,
-                                      prior_weight, uc, u)
-            cols.append((gt.pids, v, ei))
-        if len(self.cat_pids):
-            cv, score = self._cat_scores(noise["cat"], vals, active, below,
-                                         above, prior_weight)
-            cols.append((self._cat.pids, cv, score))
-        if self.multivariate:
-            return self._joint_winner(cols, n_lanes)
-        stats = self._reduce_stats([ei_argmax_stats(ei) for _, _, ei in cols])
-        for (pids, v, _), (bi, best, ties) in zip(cols, stats):
-            row[:, pids] = torch.gather(v, -1, bi[..., None])[..., 0]
-            ei_best = torch.maximum(ei_best, torch.amax(best, dim=-1))
-            ei_ties = ei_ties + torch.sum(ties, dim=-1)
-        act_row = self.cs.active_mask(row)
+        with _trace.span("tpe.step.draw"):
+            if noise is None:
+                gens = (generators if generators is not None
+                        else [None] * n_lanes)
+                noise = stack_noise([self.draw_noise(g) for g in gens])
+        with _trace.span("tpe.step.split"):
+            below, above = self._split(loss, ok, gamma)
+        with _trace.span("tpe.step.groups"):
+            cols = []
+            for g, gt, (uc, u) in zip(self.groups, self._gt, noise["cont"]):
+                v, ei = self._cont_scores(g, gt, vals, active, below, above,
+                                          prior_weight, uc, u)
+                cols.append((gt.pids, v, ei))
+            if len(self.cat_pids):
+                cv, score = self._cat_scores(noise["cat"], vals, active,
+                                             below, above, prior_weight)
+                cols.append((self._cat.pids, cv, score))
+        with _trace.span("tpe.step.pick"):
+            dev = self.device
+            row = torch.zeros((n_lanes, self.cs.n_params),
+                              dtype=torch.float32, device=dev)
+            ei_best = torch.full((n_lanes,), -math.inf, dtype=torch.float32,
+                                 device=dev)
+            ei_ties = torch.zeros((n_lanes,), dtype=torch.int64, device=dev)
+            if self.multivariate:
+                return self._joint_winner(cols, n_lanes)
+            stats = self._reduce_stats([ei_argmax_stats(ei)
+                                        for _, _, ei in cols])
+            for (pids, v, _), (bi, best, ties) in zip(cols, stats):
+                row[:, pids] = torch.gather(v, -1, bi[..., None])[..., 0]
+                ei_best = torch.maximum(ei_best, torch.amax(best, dim=-1))
+                ei_ties = ei_ties + torch.sum(ties, dim=-1)
+            act_row = self.cs.active_mask(row)
         return row, act_row, ei_best, ei_ties
 
     def _joint_winner(self, cols, n_lanes):
@@ -826,16 +836,17 @@ class _TpeKernel:
             steps = None
             gens = [make_generator(self.device, int(s) % (2 ** 32))
                     for s in seeds]
-        if m == 1:
-            rows, acts, _, _ = self._suggest_lanes(
-                hv, ha, hl, hok, gamma, prior_weight, gens,
-                None if steps is None else steps[0])
-            out = rows[:, None], acts[:, None]
-        else:
-            at = torch.as_tensor(n_rows, dtype=torch.int64,
-                                 device=self.device)
-            out = self._liar_lanes(m, at, hv, ha, hl, hok, gamma,
-                                   prior_weight, gens, steps)
+        with _trace.span("tpe.step"):
+            if m == 1:
+                rows, acts, _, _ = self._suggest_lanes(
+                    hv, ha, hl, hok, gamma, prior_weight, gens,
+                    None if steps is None else steps[0])
+                out = rows[:, None], acts[:, None]
+            else:
+                at = torch.as_tensor(n_rows, dtype=torch.int64,
+                                     device=self.device)
+                out = self._liar_lanes(m, at, hv, ha, hl, hok, gamma,
+                                       prior_weight, gens, steps)
         _costs.observe_dispatch(tier, (perf_counter() - t0) * 1e3)
         return out
 
@@ -895,8 +906,9 @@ def get_kernel(cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
                comp_sampler: str = "icdf", split_impl: str = "topk",
                fused_step: bool = True) -> _TpeKernel:
     """The cached :class:`_TpeKernel` for these shapes and arguments.  Each
-    lookup feeds ``kernel_cache_event``; a miss records the kernel's build
-    time in the cost ledger (when armed)."""
+    lookup feeds ``kernel_cache_event``; a miss is a ``tpe.kernel_build``
+    span, adds its build time to the counter ``tpe.kernel_build_ms`` and
+    records it in the cost ledger (when armed)."""
     dev = torch.device(device)
     k = (n_cap, n_cand, lf, split, cat_prior, str(dev), ei_impl,
          ei_precision, int(ei_topm), bool(multivariate), comp_sampler,
@@ -906,13 +918,17 @@ def get_kernel(cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
         hit = k in cache
         if not hit:
             t0 = perf_counter()
-            cache[k] = _TpeKernel(cs, n_cap, n_cand, lf, split, cat_prior,
-                                  dev, ei_impl, ei_precision, ei_topm,
-                                  multivariate, comp_sampler, split_impl,
-                                  fused_step)
+            with _trace.span("tpe.kernel_build"):
+                cache[k] = _TpeKernel(cs, n_cap, n_cand, lf, split,
+                                      cat_prior, dev, ei_impl, ei_precision,
+                                      ei_topm, multivariate, comp_sampler,
+                                      split_impl, fused_step)
+            build_s = perf_counter() - t0
+            _metrics_registry().counter("tpe.kernel_build_ms").inc(
+                build_s * 1e3)
             cache[k].cost_key = k
             _costs.record_compile("tpe", k, n_cap=n_cap, P=cs.n_params, m=1,
-                                  compile_s=perf_counter() - t0)
+                                  compile_s=build_s)
         kern = cache[k]
     kernel_cache_event(k, hit)
     return kern
@@ -936,8 +952,10 @@ def _prewarm_async(kern: _TpeKernel, n: int = 1):
         if getattr(kern, "_prewarmed", False):
             return None
         kern._prewarmed = True
+    request = _trace.current_request()
 
     def go():
+        _trace.set_request(request)
         try:
             kern._next_bucket()
         except Exception:
@@ -1039,15 +1057,26 @@ def suggest(new_ids, domain, trials, seed,
             split_impl="topk", fused_step=True, verbose=True):
     """TPE suggest: trial docs for ``new_ids``.  Bind hyperparameters with
     ``functools.partial(tpe.suggest, n_EI_candidates=...)``; the keywords
-    are those of :func:`suggest_dispatch`."""
-    return suggest_materialize(suggest_dispatch(
-        new_ids, domain, trials, seed, prior_weight=prior_weight,
-        n_startup_jobs=n_startup_jobs, n_EI_candidates=n_EI_candidates,
-        gamma=gamma, linear_forgetting=linear_forgetting, split=split,
-        cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
-        ei_topm=ei_topm, resident=resident, multivariate=multivariate,
-        startup=startup, comp_sampler=comp_sampler, split_impl=split_impl,
-        fused_step=fused_step, verbose=verbose))
+    are those of :func:`suggest_dispatch`.
+
+    One ``tpe.suggest`` span whose request id is the first new id, over
+    the spans of its parts (``obs/trace.py``): ``tpe.history`` (the
+    history read from the trials), ``tpe.startup`` (a startup batch and
+    its fetch) or ``tpe.acquire`` (the kernel's lookup; ``tpe.kernel_build``
+    on a miss), ``tpe.feed`` (the device history), ``tpe.step`` (the
+    step's enqueue: ``tpe.step.draw``, ``.split``, ``.groups``,
+    ``.pick``) and ``tpe.fetch`` (the wait for the rows); then
+    ``tpe.docs`` (the trial documents)."""
+    with _trace.span("tpe.suggest", request=new_ids[0] if len(new_ids)
+                     else None):
+        return suggest_materialize(suggest_dispatch(
+            new_ids, domain, trials, seed, prior_weight=prior_weight,
+            n_startup_jobs=n_startup_jobs, n_EI_candidates=n_EI_candidates,
+            gamma=gamma, linear_forgetting=linear_forgetting, split=split,
+            cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
+            ei_topm=ei_topm, resident=resident, multivariate=multivariate,
+            startup=startup, comp_sampler=comp_sampler,
+            split_impl=split_impl, fused_step=fused_step, verbose=verbose))
 
 
 def suggest_batch(new_ids, domain, trials, seed,
@@ -1149,55 +1178,74 @@ def _dispatch_with(acquire, new_ids, domain, trials, seed, prior_weight,
         return ("ready", cs, list(new_ids),
                 (np.zeros((n, cs.n_params), np.float32),
                  np.ones((n, cs.n_params), bool)), exp_key)
-    h = trials.history(cs)
-    if int(h["ok"].sum()) < n_startup_jobs:
-        v, a = _startup_batch(startup, new_ids, domain, trials, seed)
-        if isinstance(v, torch.Tensor):
-            # Device draws: fetch the values only, the mask is a host
-            # function of them.
-            v = v.cpu().numpy()
-            a = cs.active_mask_host(v)
+    with _trace.span("tpe.history"):
+        h = trials.history(cs)
+        startup_now = int(h["ok"].sum()) < n_startup_jobs
+        if not startup_now:
+            if resident:
+                # In-flight rows become a copy's slack rows on the device:
+                # a host concat would make the ring re-upload every
+                # overlapped step.
+                fant = _inflight_fantasy_rows(h, trials, cs)
+                n_rows = h["vals"].shape[0] + (len(fant[0]) if fant else 0)
+            else:
+                h = _with_inflight_fantasies(h, trials, cs)
+                n_rows = h["vals"].shape[0]
+    if startup_now:
+        with _trace.span("tpe.startup"):
+            v, a = _startup_batch(startup, new_ids, domain, trials, seed)
+            if isinstance(v, torch.Tensor):
+                # Device draws: fetch the values only, the mask is a host
+                # function of them.
+                v = v.cpu().numpy()
+                a = cs.active_mask_host(v)
         return ("ready", cs, list(new_ids), (np.asarray(v), np.asarray(a)),
                 exp_key)
-    if resident:
-        # In-flight rows become a copy's slack rows on the device: a host
-        # concat would make the ring re-upload every overlapped step.
-        fant = _inflight_fantasy_rows(h, trials, cs)
-        n_rows = h["vals"].shape[0] + (len(fant[0]) if fant else 0)
-    else:
-        h = _with_inflight_fantasies(h, trials, cs)
-        n_rows = h["vals"].shape[0]
     m = _batch_size_for(n)
-    kern = acquire(_bucket(n_rows + (m if n > 1 else 0)))
-    if n_rows >= 0.75 * kern.n_cap:
+    with _trace.span("tpe.acquire"):
+        kern = acquire(_bucket(n_rows + (m if n > 1 else 0)))
         # Near the bucket boundary: build the next bucket's kernel off this
         # thread, and (resident) pad-copy the ring to it, so that the call
         # that crosses the boundary pays neither.
-        _prewarm_async(kern, n=m)
-        if resident:
+        near_edge = n_rows >= 0.75 * kern.n_cap
+        if near_edge:
+            _prewarm_async(kern, n=m)
+    with _trace.span("tpe.feed"):
+        if near_edge and resident:
             history.pregrow(trials, cs, kern.n_cap * 2, dev)
-    t_feed = perf_counter()
-    if resident:
-        hist = history.device_history(trials, cs, h, kern.n_cap,
-                                      fantasies=fant, device=dev)
-    else:
-        hist = [torch.as_tensor(a, device=dev)
-                for a in _padded_history(h, kern.n_cap)]
+        t_feed = perf_counter()
+        if resident:
+            hist = history.device_history(trials, cs, h, kern.n_cap,
+                                          fantasies=fant, device=dev)
+        else:
+            hist = [torch.as_tensor(a, device=dev)
+                    for a in _padded_history(h, kern.n_cap)]
     reg = _metrics_registry()
     t_disp = perf_counter()
     _obs_ms(reg, "suggest.upload_ms", (t_disp - t_feed) * 1e3)
-    gen = (make_generator(dev, int(seed) % (2 ** 32)) if noise is None
-           else None)
-    if n == 1:
-        rows, _ = kern(*hist, gamma, prior_weight, generator=gen,
-                       noise=noise)
-    else:
-        rows, _ = kern.suggest_many(m, n_rows, *hist, gamma, prior_weight,
-                                    generator=gen, noises=noise)
+    cold = not kern.stepped
+    if cold:
+        built_s = ei_build_seconds()
+    with _trace.span("tpe.step"):
+        gen = (make_generator(dev, int(seed) % (2 ** 32)) if noise is None
+               else None)
+        if n == 1:
+            rows, _ = kern(*hist, gamma, prior_weight, generator=gen,
+                           noise=noise)
+        else:
+            rows, _ = kern.suggest_many(m, n_rows, *hist, gamma,
+                                        prior_weight, generator=gen,
+                                        noises=noise)
     # Host clocks only: on the card this is the enqueue, not the step.
     dms = (perf_counter() - t_disp) * 1e3
     _obs_ms(reg, "suggest.dispatch_ms", dms)
     _costs.observe_dispatch(kern.cost_key, dms)
+    if cold:
+        # A kernel's first step, less the EI library's build or load that
+        # it may have set off (counted in tpe.kernel_build_ms).
+        kern.stepped = True
+        reg.counter("tpe.cold_step_ms").inc(
+            dms - (ei_build_seconds() - built_s) * 1e3)
     return ("pending", cs, list(new_ids), _PendingRows(rows), exp_key)
 
 
@@ -1239,13 +1287,14 @@ class _PendingRows:
     def fetch(self):
         """The rows as a numpy array.  The wait (for the event, or for the
         ``.cpu()`` copy) is the suggest step's one device sync, timed into
-        ``suggest.fetch_sync_ms``."""
+        ``suggest.fetch_sync_ms``; a ``tpe.fetch`` span."""
         t0 = perf_counter()
-        if self.event is not None:
-            self.event.synchronize()
-            vals = self.host.numpy()
-        else:
-            vals = self.rows.cpu().numpy()
+        with _trace.span("tpe.fetch"):
+            if self.event is not None:
+                self.event.synchronize()
+                vals = self.host.numpy()
+            else:
+                vals = self.rows.cpu().numpy()
         _obs_ms(_metrics_registry(), "suggest.fetch_sync_ms",
                 (perf_counter() - t0) * 1e3)
         return vals
@@ -1268,10 +1317,13 @@ def _force_rows(handle):
 
 
 def suggest_materialize(handle):
-    """Block on a :func:`suggest_dispatch` handle and package trial docs."""
+    """Block on a :func:`suggest_dispatch` handle and package trial docs
+    (a ``tpe.docs`` span)."""
     _, cs, new_ids, _rows, exp_key = handle
     vals, active = _force_rows(handle)
-    return base.docs_from_samples(cs, new_ids, vals, active, exp_key=exp_key)
+    with _trace.span("tpe.docs"):
+        return base.docs_from_samples(cs, new_ids, vals, active,
+                                      exp_key=exp_key)
 
 
 def suggest_start_transfer(handle):
