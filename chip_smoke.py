@@ -255,6 +255,14 @@ Phases, each fatal on failure:
 18. card_tests ``python -m pytest tests_torch_cuda`` in a subprocess: exit 0
                and every collected test passed.
 
+A hosted one-proposal TPE step replays its kernel's CUDA graph after the
+kernel's first step (``tpe._HostedStep``); the EI wrapper counts eager
+launches and launches recorded into graphs, not replays.  Each phase
+keeps the three apart (:func:`check_hosted`): the steps that did not
+replay launch the picked kernel once each, each capture launches it once
+in its warm-up and records it once, and ``tpe.graph.replays`` counts the
+replays, which the kernels line adds to its graph replays.
+
 Prints the card's name and power limit first and again before the
 kernels line, each phase's wall seconds as it ends and a ``phase
 seconds:`` JSON line of all of them, one ``{"kernels": [...]}`` JSON line
@@ -789,20 +797,23 @@ def phase_suggest_step(dev):
     algo = partial(tpe.suggest_batch, n_EI_candidates=N_CAND)
     tid = trials.new_trial_ids(1)
     times = []
+    eager = 0
     for step in range(6):
-        before = ei_mod.ei_scores.launches
+        ei_mod.reset_launches()
+        g0 = graph_counts()
         t0 = time.perf_counter()
         vals, _ = algo(tid, domain, trials, seed=step)
         times.append((time.perf_counter() - t0) * 1e3)
-        if ei_mod.ei_scores.launches - before != 1:
-            fail("suggest_step: the step did not launch the kernel once")
+        eager += check_hosted(f"suggest_step: step {step}", "f32", 1,
+                              graph_moved(g0))
         bad = in_bounds(domain.cs, vals[0])
         if bad:
             fail(f"suggest_step: proposal outside the space: {bad}")
     steady_ms = float(np.median(times[1:]))
     print(f"suggest_step: P={domain.cs.n_params} history={N_HISTORY} "
           f"n_cand={N_CAND} first_ms={times[0]:.2f} "
-          f"steady_ms_median={steady_ms:.2f}")
+          f"steady_ms_median={steady_ms:.2f}; K1 once per step, {eager} "
+          f"of 6 eager, the others replays of the hosted step graph")
     hosted = profile_steps(lambda s: algo(tid, domain, trials, seed=100 + s))
     hosted["steady_ms"] = steady_ms
 
@@ -876,30 +887,27 @@ def phase_fmin(dev):
     space = flagship_space()
     cs = compile_space(space)
     trials = synthetic_trials(cs, N_HISTORY, 1, dev)
-    ei_mod.reset_launches()
+    tally = Tally()
     t0 = time.perf_counter()
-    ho.fmin(objective, space,
-            algo=partial(tpe.suggest, n_EI_candidates=N_CAND),
-            max_evals=N_HISTORY + N_MORE, trials=trials,
-            rstate=np.random.default_rng(0), device=dev,
-            show_progressbar=False)
+    tally.counted("f32", lambda: ho.fmin(
+        objective, space, algo=partial(tpe.suggest, n_EI_candidates=N_CAND),
+        max_evals=N_HISTORY + N_MORE, trials=trials,
+        rstate=np.random.default_rng(0), device=dev,
+        show_progressbar=False))
     wall = time.perf_counter() - t0
-    launches = ei_mod.ei_scores.launches
-    if ei_mod.ei_scores.launches_by["f32"] != launches:
-        fail(f"fmin: launches of other lowerings than f32: "
-             f"{ei_mod.ei_scores.launches_by}")
+    eager = check_hosted("fmin", "f32", N_MORE, tally.graphs)
     if len(trials) != N_HISTORY + N_MORE:
         fail(f"fmin: {len(trials)} trials, wanted {N_HISTORY + N_MORE}")
     for t in trials:
         if t["state"] != base.JOB_STATE_DONE or \
                 not math.isfinite(t["result"]["loss"]):
             fail(f"fmin: trial {t['tid']} is not DONE with a finite loss")
-    if launches != N_MORE:
-        fail(f"fmin: {launches} kernel launches for {N_MORE} TPE steps")
     print(f"fmin: {N_MORE} trials in {wall:.3f} s = {N_MORE / wall:.2f} "
           f"trials/s, best loss {trials.best_trial['result']['loss']:.4g}, "
-          f"ei_scores launches {launches}")
-    return launches
+          f"K1 once per TPE step: {eager} eager, {tally.graphs['replays']} "
+          f"replays of the hosted step graph ({tally.graphs['captures']} "
+          f"captures)")
+    return tally.rows()
 
 
 def phase_liar_batch(dev):
@@ -1014,29 +1022,76 @@ def column_diffs(got, want):
     return diffs
 
 
+GRAPH_COUNTERS = ("captures", "replays", "eager_steps")
+
+
+def graph_counts():
+    """The hosted step graphs' counters now (``tpe.graph.*``)."""
+    snap = metrics.registry().snapshot()["counters"]
+    return {k: int(snap.get(f"tpe.graph.{k}", 0)) for k in GRAPH_COUNTERS}
+
+
+def graph_moved(before):
+    """How far the hosted step graphs' counters moved since ``before``."""
+    now = graph_counts()
+    return {k: now[k] - before[k] for k in GRAPH_COUNTERS}
+
+
+def check_hosted(what, low, steps, graphs, got=None):
+    """``steps`` TPE steps ran the kernel of lowering ``low`` (None: a
+    space with no density column, which runs none) once each: eagerly (a
+    kernel's first hosted step, a batch, a head that calls the kernel
+    itself) or in a replay of a hosted step graph (``graphs``: the graph
+    counters' moves over the same block).  Each capture launches the
+    kernel once in its warm-up and records it once into the graph, so the
+    wrapper counts ``steps - replays + captures`` eager launches and
+    ``captures`` recordings of ``low``, none of the other lowerings; no
+    capture failed, and each capture was a replayed step.  ``got``: the
+    wrapper's ``(launches_by, recorded_by)`` read after the block (by
+    default, now).  Returns the eager steps."""
+    eager = steps - graphs["replays"]
+    want = ({k: (eager + graphs["captures"]) * (k == low) for k in KERNELS},
+            {k: graphs["captures"] * (k == low) for k in KERNELS})
+    if got is None:
+        got = (dict(ei_mod.ei_scores.launches_by),
+               dict(ei_mod.ei_scores.recorded_by))
+    if got != want or eager < 0 or graphs["eager_steps"] \
+            or graphs["captures"] > graphs["replays"]:
+        fail(f"{what}: wrapper launches and records {got}, hosted graphs "
+             f"{graphs}; wanted {want} for {steps} TPE steps")
+    return eager
+
+
 class Tally:
     """A phase's EI kernel counts per lowering, summed over its runs: eager
     launches, launches recorded into graphs, and replays of graphs that
-    hold the kernel (one kernel run per replay, whatever the lanes)."""
+    hold the kernel (one kernel run per replay, whatever the lanes):
+    device mode's and the hosted step's (every space the phases run has a
+    density column, so a hosted graph holds K1; :func:`check_hosted`
+    checks that each capture records it)."""
 
     def __init__(self):
         self.launches = dict.fromkeys(KERNELS, 0)
         self.recorded = dict.fromkeys(KERNELS, 0)
         self.replayed = dict.fromkeys(KERNELS, 0)
+        self.graphs = dict.fromkeys(GRAPH_COUNTERS, 0)
 
     def counted(self, low, run):
         """``run()`` with the device counters and the wrapper's counts set
         to 0 just before it; adds what it launched, recorded into graphs
-        and replayed (graphs of lowering ``low``) to the tallies."""
+        and replayed (graphs of lowering ``low``) to the tallies, and
+        keeps the hosted graph counters' moves in ``graphs``."""
         device.reset_counters()
         ei_mod.reset_launches()
+        g0 = graph_counts()
         try:
             return run()
         finally:
+            self.graphs = graph_moved(g0)
             for k in KERNELS:
                 self.launches[k] += ei_mod.ei_scores.launches_by[k]
                 self.recorded[k] += ei_mod.ei_scores.recorded_by[k]
-            self.replayed[low] += device.replays
+            self.replayed[low] += device.replays + self.graphs["replays"]
 
     def rows(self):
         return {k: (self.launches[k], self.recorded[k], self.replayed[k])
@@ -1768,9 +1823,15 @@ def phase_obs(dev, show=None):
         gpu = [e for e in prof if e.get("cat") == "kernel"]
         runs = {low: sum(sym in e.get("name", "") for e in gpu)
                 for low, sym in KERNEL_SYMBOLS.items()}
-        if runs != {k: N_MORE * (k == "f32") for k in runs}:
+        graphs = tally.graphs
+        check_hosted("obs (c)", "f32", N_MORE, graphs)
+        # The card ran K1 once per step, eager or replayed, and once more
+        # in each capture's warm-up.
+        if runs != {k: (N_MORE + graphs["captures"]) * (k == "f32")
+                    for k in runs}:
             fail(f"obs (c): the profiler export names the EI kernels "
-                 f"{runs} times for {N_MORE} TPE steps")
+                 f"{runs} times for {N_MORE} TPE steps and "
+                 f"{graphs['captures']} captures")
         types = {}
         with open(os.path.join(trace_dir, "loop_events.jsonl")) as fh:
             for line in fh:
@@ -1788,7 +1849,9 @@ def phase_obs(dev, show=None):
           f"TPE steps in {wall:.3f} s (profiler start and export "
           f"included): the export ({size} bytes, {len(gpu)} kernel events) "
           f"names {KERNEL_SYMBOLS['f32']} {runs['f32']} times, once per "
-          f"step; events {dict(sorted(types.items()))}; spans "
+          f"step ({graphs['replays']} of them replays of the hosted step "
+          f"graph, {graphs['captures']} captures); events "
+          f"{dict(sorted(types.items()))}; spans "
           + ", ".join(f"{k} {v['count']}x {v['mean_ms']} ms"
                       for k, v in spans.items() if k != "_wall")
           + f"; coverage {spans['_wall']['coverage']}")
@@ -2087,7 +2150,9 @@ def phase_pipeline(dev):
         return {"what": what, "wall": wall, "rate": n_new / wall,
                 "n": n_new, "moved": moved, "seen": seen.values,
                 "k1": ei_mod.ei_scores.launches_by["f32"],
-                "launches": dict(ei_mod.ei_scores.launches_by)}
+                "got": (dict(ei_mod.ei_scores.launches_by),
+                        dict(ei_mod.ei_scores.recorded_by)),
+                "graphs": tally.graphs}
 
     results = {}
     hosted = {"a": dict(overlap_depth=0), "b": dict(overlap_suggest=True),
@@ -2102,11 +2167,8 @@ def phase_pipeline(dev):
         check_settled(key, trials)
         if r["n"] != PIPE_RUN:
             fail(f"pipeline ({key}): {r['n']} new trials, wanted {PIPE_RUN}")
-        if r["launches"] != {k: counter.steps() * (k == "f32")
-                             for k in r["launches"]}:
-            fail(f"pipeline ({key}): K1 launched {r['launches']} times for "
-                 f"{counter.steps()} TPE steps in {len(counter.sizes)} "
-                 f"dispatches")
+        check_hosted(f"pipeline ({key}), {len(counter.sizes)} dispatches",
+                     "f32", counter.steps(), r["graphs"], r["got"])
         if any(r["moved"][g] for g in guards):
             fail(f"pipeline ({key}): slot failures or a fallback: "
                  f"{r['moved']}")
@@ -2183,7 +2245,7 @@ def phase_pipeline(dev):
                  f", {r['children']} child pids")
         print(f"pipeline ({key}) {labels[key]}: {r['n']} trials in "
               f"{r['wall']:.3f} s = {r['rate']:.2f} trials/s; K1 launches "
-              f"{r['k1']}{extra}; occupancy p50 {pct(occ, 50):.2f} p95 "
+              f"{r['k1']}, hosted graphs {r['graphs']}{extra}; occupancy p50 {pct(occ, 50):.2f} p95 "
               f"{pct(occ, 95):.2f} ({len(occ)} samples); stalls "
               f"suggest_bound {r['moved'][stalls[0]]:.0f} eval_bound "
               f"{r['moved'][stalls[1]]:.0f}; fetch_sync_ms p50 "
@@ -2221,11 +2283,9 @@ def phase_tpe_rest(dev, hosted):
     algo_fac = partial(tpe.suggest, n_EI_candidates=N_CAND)
 
     def only(what, low, n):
-        """The last counted run launched ``low``'s kernel ``n`` times and
-        the others never."""
-        by = dict(ei_mod.ei_scores.launches_by)
-        if by != {k: n * (k == low) for k in by}:
-            fail(f"tpe_rest {what}: EI launches {by}, wanted {n} of {low}")
+        """The last counted run ran ``low``'s kernel once in each of its
+        ``n`` TPE steps, eagerly or replayed, and the others never."""
+        check_hosted(f"tpe_rest {what}", low, n, tally.graphs)
 
     # (a) the hosted joint step at full width.
     domain = base.Domain(objective, space)
@@ -2780,9 +2840,9 @@ def phase_heads(dev):
     t_phase = time.perf_counter()
 
     def launched(what, n):
-        by = dict(ei_mod.ei_scores.launches_by)
-        if by != {k: n * (k == "f32") for k in by}:
-            fail(f"heads {what}: EI launches {by}, wanted {n} of f32")
+        """The last counted run ran K1 once in each of its ``n`` steps,
+        eagerly or replayed, and the other kernels never."""
+        check_hosted(f"heads {what}", "f32", n, tally.graphs)
 
     # (a) every name resolves; 16 hosted trials per unique head, on the
     # entry point's default device.
@@ -2807,7 +2867,8 @@ def phase_heads(dev):
         launched(f"(a) {name}", want)
         settled_in_bounds(f"heads (a) {name}", cs, trials, N_HISTORY)
         print(f"heads (a) {name}: {HEADS_MORE} trials after the history in "
-              f"{secs:.2f} s, K1 launches {want}")
+              f"{secs:.2f} s, K1 runs {want} ({tally.graphs['replays']} "
+              f"replays of the hosted step graph)")
 
     # (b) ATPE, 64 trials; each arm forced once through the bandit state.
     trials = base.trials_from_docs(copy.deepcopy(history0))
@@ -3002,19 +3063,25 @@ def phase_dispatch(dev):
                     trials=t, rstate=np.random.default_rng(7), device=dev,
                     show_progressbar=False))
                 runs[name] = (landed(t, N_HISTORY), n_sharded() - s0,
-                              dict(ei_mod.ei_scores.launches_by))
+                              (dict(ei_mod.ei_scores.launches_by),
+                               dict(ei_mod.ei_scores.recorded_by)),
+                              tally.graphs)
             finally:
                 dispatch.set_mode(prev)
-        (rows_s, n_s, k_s), (rows_l, n_l, k_l) = runs["sharded"], \
-            runs["local"]
+        (rows_s, n_s, k_s, g_s), (rows_l, n_l, k_l, g_l) = \
+            runs["sharded"], runs["local"]
         if n_s != DISPATCH_MORE or n_l != 0:
             fail(f"dispatch (b): dispatch.sharded counted {n_s} and {n_l}, "
                  f"wanted {DISPATCH_MORE} and 0")
         if rows_s != rows_l:
             fail("dispatch (b): the sharded hosted run landed other rows "
                  "than the local one")
-        if k_s != k_l or k_s["f32"] != DISPATCH_MORE:
-            fail(f"dispatch (b): K1 launches {k_s} sharded, {k_l} local")
+        # The sharded kernel never takes the hosted step graph.
+        if g_s["replays"] or g_s["captures"]:
+            fail(f"dispatch (b): the sharded run took the hosted step "
+                 f"graph: {g_s}")
+        check_hosted("dispatch (b) sharded", "f32", DISPATCH_MORE, g_s, k_s)
+        check_hosted("dispatch (b) local", "f32", DISPATCH_MORE, g_l, k_l)
         domain = base.Domain(objective, space)
         domain.cs.device = dev
         t = copy_history()
@@ -3041,8 +3108,9 @@ def phase_dispatch(dev):
         tpe.suggest_materialize(handle)
         print(f"dispatch (b): {DISPATCH_MORE} hosted trials under the mesh "
               f"land the local run's rows bit for bit; dispatch.sharded="
-              f"{n_s}; K1 launches {k_s['f32']} (sharded) and {k_l['f32']} "
-              f"(local); host ms per dispatch (enqueue) sharded="
+              f"{n_s}; K1 launches {k_s[0]['f32']} (sharded) and "
+              f"{k_l[0]['f32']} (local, {g_l['replays']} replays of the "
+              f"hosted step graph); host ms per dispatch (enqueue) sharded="
               f"{enq['sharded']:.3f} local={enq['local']:.3f} (collective "
               f"{enq['sharded'] - enq['local']:+.3f}); ms through "
               f"materialize sharded={tot['sharded']:.3f} "
@@ -3211,6 +3279,7 @@ def phase_dispatch(dev):
                 device=dev))
             drive_s = time.perf_counter() - t0
             k1 = ei_mod.ei_scores.launches_by["f32"]
+            g_drive = tally.graphs
             n_s = n_sharded() - s0
         finally:
             outs = []
@@ -3236,9 +3305,11 @@ def phase_dispatch(dev):
                 d["state"] != base.JOB_STATE_DONE for d in ft):
             fail(f"dispatch (g): {len(ft)} trials, {len(set(tids))} tids, "
                  f"states {sorted({d['state'] for d in ft})}")
-        if k1 != DISPATCH_DRIVER or n_s != DISPATCH_DRIVER:
-            fail(f"dispatch (g): {k1} K1 launches and {n_s} sharded "
-                 f"dispatches for {DISPATCH_DRIVER} TPE trials")
+        if k1 != DISPATCH_DRIVER or n_s != DISPATCH_DRIVER \
+                or g_drive["replays"] or g_drive["captures"]:
+            fail(f"dispatch (g): {k1} K1 launches, {n_s} sharded "
+                 f"dispatches and hosted graphs {g_drive} for "
+                 f"{DISPATCH_DRIVER} TPE trials")
         shutil.rmtree(root, ignore_errors=True)
         print(f"dispatch (g): run_driver over a FileTrials with "
               f"{DISPATCH_WORKERS} worker processes: {n_drive} trials DONE "
@@ -3534,12 +3605,11 @@ def phase_netstore(dev):
                 for s in range(NET_SUGGESTS)])
 
         got = server_rows("binary")
-        k_bin = dict(ei_mod.ei_scores.launches_by)
+        check_hosted("netstore (b) server-side", "f32", NET_SUGGESTS,
+                     tally.graphs)
+        k_bin, g_bin = dict(ei_mod.ei_scores.launches_by), tally.graphs
         want = [tpe.suggest(ids, domain, local, s, n_EI_candidates=N_CAND)
                 for s in range(NET_SUGGESTS)]
-        if k_bin != {k: NET_SUGGESTS * (k == "f32") for k in k_bin}:
-            fail(f"netstore (b): server-side K1 launches {k_bin}, wanted "
-                 f"{NET_SUGGESTS} of f32")
         if got != want:
             bad = [s for s, (a, b) in enumerate(zip(got, want)) if a != b]
             fail(f"netstore (b): server-side rows differ from the "
@@ -3550,7 +3620,8 @@ def phase_netstore(dev):
         print(f"netstore (b): {NET_SUGGESTS} server_suggest proposals "
               f"(seeds 0-{NET_SUGGESTS - 1}, {N_CAND} candidates) equal "
               f"the in-process tpe.suggest rows bit for bit, K1 "
-              f"{k_bin['f32']} launches on the server side; json mode gives "
+              f"{k_bin['f32']} launches and {g_bin['replays']} replays of "
+              f"the hosted step graph on the server side; json mode gives "
               f"the same docs")
 
         # (c) every head by name over the wire, against its in-process
@@ -3559,23 +3630,21 @@ def phase_netstore(dev):
         wire.set_mode("binary")
         heads = {}
         for name in backends.names():
-            got1 = tally.counted("f32", lambda: server_suggest(
+            low = {"tpe_bf16": "bf16", "tpe_mxu": "mxu"}.get(name, "f32")
+            n_want = int(name in TPE_FAMILY or name == "atpe"
+                         or name in NET_EXTRA_HEADS)
+            got1 = tally.counted(low, lambda: server_suggest(
                 ids, None, nt, NET_HEAD_SEED, algo=name))
-            by = dict(ei_mod.ei_scores.launches_by)
+            check_hosted(f"netstore (c) {name}", low, n_want, tally.graphs)
+            heads[name] = (ei_mod.ei_scores.launches_by[low],
+                           tally.graphs["replays"])
             want1 = table[name](ids, domain, local, NET_HEAD_SEED)
             if got1 != want1:
                 fail(f"netstore (c): {name} served over the wire differs "
                      f"from its in-process call")
-            low = {"tpe_bf16": "bf16", "tpe_mxu": "mxu"}.get(name, "f32")
-            n_want = int(name in TPE_FAMILY or name == "atpe"
-                         or name in NET_EXTRA_HEADS)
-            if by != {k: n_want * (k == low) for k in by}:
-                fail(f"netstore (c): {name}: EI launches {by}, wanted "
-                     f"{n_want} of {low}")
-            heads[name] = by[low]
         print(f"netstore (c): {len(heads)} heads served by name equal their "
               f"in-process calls (gp card against card); EI launches "
-              f"through the wire {heads}")
+              f"and hosted graph replays through the wire {heads}")
 
         # (d) host ms: a server-side round trip against the in-process
         # suggest, and a full refresh in binary frames against JSON.
@@ -3654,7 +3723,9 @@ def phase_netstore(dev):
                 n_EI_candidates=N_CAND, rstate=np.random.default_rng(5),
                 show_progressbar=False, device=dev))
             drive_s = time.perf_counter() - t0
-            k1 = ei_mod.ei_scores.launches_by["f32"]
+            got_drive = (dict(ei_mod.ei_scores.launches_by),
+                         dict(ei_mod.ei_scores.recorded_by))
+            g_drive = tally.graphs
         finally:
             outs = []
             for p in workers:
@@ -3681,15 +3752,15 @@ def phase_netstore(dev):
                 d["state"] != base.JOB_STATE_DONE for d in ft):
             fail(f"netstore (e): {len(ft)} trials, {len(set(tids))} tids, "
                  f"states {sorted({d['state'] for d in ft})}")
-        if k1 != NET_DRIVER:
-            fail(f"netstore (e): {k1} K1 launches for {NET_DRIVER} TPE "
-                 f"trials")
+        eager = check_hosted("netstore (e)", "f32", NET_DRIVER, g_drive,
+                             got_drive)
         print(f"netstore (e): run_driver over {srv.url} with {NET_WORKERS} "
               f"worker processes (python -m "
               f"hyperopt_tpu_torch.parallel.netstore --worker): {n_drive} "
-              f"trials DONE ({NET_DRIVER} after startup, K1 {k1} times on "
-              f"the card), {len(owners)} owners, no tid claimed twice, "
-              f"every worker exited 0, {drive_s:.1f} s")
+              f"trials DONE ({NET_DRIVER} after startup, K1 once each on "
+              f"the card: {eager} eager, {g_drive['replays']} replays of "
+              f"the hosted step graph), {len(owners)} owners, no tid "
+              f"claimed twice, every worker exited 0, {drive_s:.1f} s")
 
         # (f) GET /metrics as OpenMetrics, through the strict parser.
         from urllib.request import Request, urlopen
@@ -3816,10 +3887,8 @@ def phase_service(dev, show=None):
                             seeds[i], new_ids=ids, insert=False, **kw))))
                 finally:
                     srv._dispatch = real_dispatch
-                k_b = ei_mod.ei_scores.launches_by
-                if k_b != {k: NET_TIMED * (k == "f32") for k in k_b}:
-                    fail(f"service (b): K1 launches {k_b} for {NET_TIMED} "
-                         f"server-side suggests")
+                check_hosted(f"service (b) turn {turn}", "f32", NET_TIMED,
+                             tally.graphs)
                 ms["local"] += host_ms(lambda i: want.append(tpe.suggest(
                     ids, domain, local, seeds[i], **kw)))
                 ms["history"] += host_ms(lambda i: store.history(scs))
@@ -3836,8 +3905,9 @@ def phase_service(dev, show=None):
               f"in-process suggest={med['local']:.3f} (wire and lock "
               f"{med['server'] - med['local']:+.3f}); the store's columnar "
               f"history={med['history']:.3f}; {2 * NET_TIMED} rows equal "
-              f"bit for bit, one K1 launch each (the file store of the "
-              f"netstore phase: 86.7-117.9 against 13.4-18.9 ms)")
+              f"bit for bit, K1 once each, launched or replayed (the file "
+              f"store of the netstore phase: 86.7-117.9 against 13.4-18.9 "
+              f"ms)")
         print("service (b) json: " + json.dumps(
             {"server_suggest_ms": med["server"],
              "server_verb_ms": med["verb"],
@@ -3883,15 +3953,13 @@ def phase_service(dev, show=None):
         for w in range(SVC_WINDOWS):
             rows, wms = tally.counted("f32", lambda: window(w))
             win_ms.append(wms)
-            k_c = dict(ei_mod.ei_scores.launches_by)
+            # One cohort dispatch, one K1 launch, no hosted step.
+            check_hosted(f"service (c): window {w}", "f32", 1, tally.graphs)
             if rows != solo[w]:
                 bad = [i for i, (a, b) in enumerate(zip(rows, solo[w]))
                        if a != b]
                 fail(f"service (c): window {w}: tenants {bad}'s rows differ "
                      f"from their solo rows")
-            if k_c != {k: int(k == "f32") for k in k_c}:
-                fail(f"service (c): window {w}: EI launches {k_c}, wanted "
-                     f"one K1")
         n_disp = fleet.dispatches - d0
         tier = fleet.cohort_tier_last
         if n_disp != SVC_WINDOWS:
@@ -3912,14 +3980,14 @@ def phase_service(dev, show=None):
         d1 = fleet.dispatches
         rows, _ = tally.counted("f32", lambda: window(w, lambda: gt.suggest(
             77, new_ids=[N_HISTORY + w], insert=False, gamma=0.5, **kw)))
-        k_g = dict(ei_mod.ei_scores.launches_by)
+        # The cohort's launch and the solo step's K1, launched or replayed.
+        check_hosted("service (c): the gamma window", "f32", 2, tally.graphs)
         if rows[:SVC_TENANTS] != solo[w] or rows[SVC_TENANTS] != gwant:
             fail("service (c): the gamma window's rows differ from the "
                  "solo rows")
-        if fleet.dispatches - d1 != 1 or k_g != {
-                k: 2 * (k == "f32") for k in k_g}:
+        if fleet.dispatches - d1 != 1:
             fail(f"service (c): the gamma window: "
-                 f"{fleet.dispatches - d1} dispatches, EI launches {k_g}")
+                 f"{fleet.dispatches - d1} dispatches")
         print(f"service (c): {SVC_WINDOWS} windows of {SVC_TENANTS} "
               f"concurrent tenants: each tenant's rows equal its solo "
               f"in-process rows bit for bit; fleet.dispatches +{n_disp}, "
@@ -3927,7 +3995,7 @@ def phase_service(dev, show=None):
               f"{tier}); ms per window (wall, window included) "
               f"{[round(x, 3) for x in win_ms]}; a 9th request with "
               f"gamma=0.5 in a 4th window took the solo path (1 dispatch, "
-              f"2 K1 launches), its row equal to the in-process one")
+              f"2 K1 runs), its row equal to the in-process one")
         if show is not None:
             show.live(srv.url, f"{NET_TOKEN}-0", "service",
                       tenants=[f"tenant{i}" for i in range(SVC_TENANTS)],
@@ -3961,22 +4029,24 @@ def phase_service(dev, show=None):
         table_ = contract.server_table()
         by_name = {}
         for name in NET_EXTRA_HEADS:
-            got1 = tally.counted("f32", lambda: nt.suggest(
-                NET_HEAD_SEED, new_ids=ids, insert=False, algo=name, **kw))
-            by = dict(ei_mod.ei_scores.launches_by)
             low = {"tpe_bf16": "bf16", "tpe_mxu": "mxu"}[name]
+            got1 = tally.counted(low, lambda: nt.suggest(
+                NET_HEAD_SEED, new_ids=ids, insert=False, algo=name, **kw))
+            check_hosted(f"service (d) {name}", low, 1, tally.graphs)
+            by_name[name] = (ei_mod.ei_scores.launches_by[low],
+                             tally.graphs["replays"])
             want1 = table_[name](ids, tenants[0][1], tenants[0][2],
                                  NET_HEAD_SEED, **kw)
-            if got1 != want1 or by != {k: int(k == low) for k in by}:
-                fail(f"service (d): {name}: EI launches {by}, rows equal "
-                     f"{got1 == want1}")
-            by_name[name] = by[low]
+            if got1 != want1:
+                fail(f"service (d): {name}: rows differ from the "
+                     f"in-process ones")
         print(f"service (d): stopped without a snapshot "
               f"({info['records']} WAL records, {info['wal_bytes']} bytes); "
               f"a new ServiceServer on the WAL recovered the same "
               f"state_bytes() ({len(live)} bytes) in {rec_s:.2f} s with no "
               f"EI launch and no dispatch; tpe_bf16 and tpe_mxu served by "
-              f"name after it: {by_name}, rows equal the in-process ones")
+              f"name after it (launches, hosted graph replays): {by_name}, "
+              f"rows equal the in-process ones")
         if show is not None:
             show.pull_bundle(nt, "recovered")
             show.merge()
@@ -4027,11 +4097,9 @@ def phase_service(dev, show=None):
                 rt, dom, loc = routed[k]
                 got1 = tally.counted("f32", lambda: rt.suggest(
                     seed, new_ids=ids, insert=False, **kw))
-                by = dict(ei_mod.ei_scores.launches_by)
-                if got1 != tpe.suggest(ids, dom, loc, seed, **kw) or \
-                        by != {x: int(x == "f32") for x in by}:
-                    fail(f"service (e): {what}: routed rows of {k} differ "
-                         f"or EI launches {by}")
+                check_hosted(f"service (e) {what}", "f32", 1, tally.graphs)
+                if got1 != tpe.suggest(ids, dom, loc, seed, **kw):
+                    fail(f"service (e): {what}: routed rows of {k} differ")
                 fleet_ok.append(what)
                 return rt.shard_id
 
@@ -4077,7 +4145,7 @@ def phase_service(dev, show=None):
                   f"equal; s0's primary shut down, the router promoted its "
                   f"replica and the next suggest of {k0} is equal, "
                   f"{N_HISTORY} trials kept ({len(fleet_ok)} routed "
-                  f"suggests, one K1 launch each)")
+                  f"suggests, K1 once each, launched or replayed)")
         finally:
             router.shutdown()
     finally:
@@ -4405,17 +4473,21 @@ def phase_examples(card):
             launched = {k: tally.launches[k] - before[0][k] for k in KERNELS}
             recorded = {k: tally.recorded[k] - before[1][k] for k in KERNELS}
             replayed = tally.replayed["f32"] - before[2]
+            hosted = tally.graphs
             found = [float(m.group(1)) for m in EXAMPLE_RESULT.finditer(text)]
             losses = [loss for loss, _ in runs]
             if not found or not all(map(math.isfinite, found + losses)) \
                     or not losses:
                 fail(f"examples: {script} printed no result line, or a "
                      f"best loss that is not finite ({losses}):\n{text}")
-            if launched["f32"] + recorded["f32"] == 0 or any(
-                    launched[k] + recorded[k] for k in ("bf16", "mxu")):
+            if launched["f32"] + recorded["f32"] + replayed == 0 or any(
+                    launched[k] + recorded[k] for k in ("bf16", "mxu")) \
+                    or hosted["eager_steps"] \
+                    or recorded["f32"] < hosted["captures"]:
                 fail(f"examples: {script} launched the EI kernels "
-                     f"{launched} and recorded {recorded}: K1 and only K1 "
-                     f"must run")
+                     f"{launched}, recorded {recorded} and replayed "
+                     f"{replayed} times (hosted graphs {hosted}): K1 and "
+                     f"only K1 must run, and each hosted capture record it")
             extra = ""
             if script.startswith("04"):
                 sharded = n_sharded() - before[3]
@@ -4425,17 +4497,18 @@ def phase_examples(card):
                 extra = f", dispatch.sharded +{sharded:.0f}"
             if script.startswith("11"):
                 trials = sum(n for _, n in runs)
-                if device.eager_steps != 0 or replayed != trials:
+                if device.eager_steps != 0 or device.replays != trials:
                     fail(f"examples: 11 ran {device.eager_steps} eager "
-                         f"steps and {replayed} replays for {trials} "
-                         f"trials")
-                extra = (f", device.replays {replayed} for {trials} "
+                         f"steps and {device.replays} replays for "
+                         f"{trials} trials")
+                extra = (f", device.replays {device.replays} for {trials} "
                          f"trials, eager_steps == 0")
             print(f"examples {script}: {wall:.3f} s, best loss "
                   f"{min(losses)!r} (runs {losses}), K1 launches "
                   f"{launched['f32']} ({recorded['f32']} recorded into "
-                  f"graphs, "
-                  f"{replayed} graph replays){extra}; {card}")
+                  f"graphs, {replayed} graph replays, "
+                  f"{hosted['replays']} of them the hosted step's, "
+                  f"{hosted['captures']} hosted captures){extra}; {card}")
     finally:
         ho.fmin, ho.fmin_device = real_fmin, real_device
         sys.argv, sys.path[:] = saved[0], saved[1]
@@ -4539,7 +4612,8 @@ def main():
         # counted runs and the contract phase's replays.  fleet_ms: the
         # kernel through its wrapper at 31·L columns.
         dev_launches, dev_recorded, dev_replays = (
-            sum(parts) for parts in zip(device_launches[low],
+            sum(parts) for parts in zip(fmin_launches[low],
+                                        device_launches[low],
                                         fleet_launches[low],
                                         obs_launches[low],
                                         pipeline_launches[low],
@@ -4550,8 +4624,7 @@ def main():
                                         netstore_launches[low],
                                         service_launches[low],
                                         examples_launches[low]))
-        n = (liar_launches[low] + (fmin_launches if low == "f32" else 0)
-             + dev_launches)
+        n = liar_launches[low] + dev_launches
         k = kernels[low]
         if low == "f32":
             k["max_abs_err"] = max(k["max_abs_err"], heads_err)

@@ -22,7 +22,9 @@ Observability (``obs/``): the loop emits ``trial_queued``/``trial_start``/
 ``trial_end``/``suggest`` events and the ``fmin.batches``,
 ``fmin.trials.done``/``error`` and ``fmin.trials_per_sec`` metrics;
 ``trace_dir=`` times the ``suggest``, ``store``, ``evaluate``, ``save``
-and ``early_stop`` spans of each batch and writes ``loop_trace.json``,
+and ``early_stop`` spans of each batch and the serial loop's ``progress``
+span between batches (the stop check, the trial counts, the progress
+bar; not in the event log) and writes ``loop_trace.json``,
 ``loop_events.jsonl``, ``chrome_trace.json`` and the ``torch.profiler``
 export ``profiler_trace.json`` there; an exception escaping the loop
 triggers the flight recorder when it is installed (``obs/flight.py``).
@@ -300,19 +302,23 @@ class FMinIter:
                 pass
         return False
 
-    def run_one_batch(self):
-        """Enqueue up to ``max_queue_len`` new trials from one call of the
-        algo, then evaluate the queued ones (or poll an asynchronous
-        store once).  Returns True when the algo is exhausted or early
-        stop fired.  The pipelined loop (``pipeline.py``) replaces this
-        when it is configured."""
-        trials = self.trials
-        stopped = False
-        qlen = trials.count_by_state_unsynced((JOB_STATE_NEW,
-                                               JOB_STATE_RUNNING))
+    def _n_to_enqueue(self):
+        """New trials the next batch asks the algo for: the queue's room,
+        within ``max_evals``."""
+        qlen = self.trials.count_by_state_unsynced((JOB_STATE_NEW,
+                                                    JOB_STATE_RUNNING))
         remaining = (self.max_evals - self.n_enqueued()
                      if self.max_evals is not None else self.max_queue_len)
-        n_to_enqueue = min(self.max_queue_len - qlen, remaining)
+        return min(self.max_queue_len - qlen, remaining)
+
+    def run_one_batch(self, n_to_enqueue):
+        """Enqueue ``n_to_enqueue`` new trials (:meth:`_n_to_enqueue`) from
+        one call of the algo, then evaluate the queued ones (or poll an
+        asynchronous store once).  Returns True when the algo is
+        exhausted or early stop fired.  The pipelined loop
+        (``pipeline.py``) replaces this when it is configured."""
+        trials = self.trials
+        stopped = False
         tracer = self.tracer
         request = None
         if n_to_enqueue > 0:
@@ -425,19 +431,27 @@ class FMinIter:
                 # The executor hit its cap of consecutive slot failures,
                 # drained, and hands the rest of the run to this loop.
                 logger.warning("pipeline fell back to the synchronous loop")
-            while not self._stopped(self.n_done()):
+            # The bookkeeping between two batches (the stop check, the
+            # trial counts, the progress bar) is one span, kept out of the
+            # event log.
+            with self.tracer.span("progress", emit=False):
                 before = self.n_done()
-                stopped = self.run_one_batch()
-                after = self.n_done()
-                prog.update(after - before)
-                try:
-                    prog.postfix(self.trials.best_trial["result"]["loss"])
-                except AllTrialsFailed:
-                    pass
-                if stopped:
-                    break
-                if after == before and not self.asynchronous:
-                    break       # no progress possible
+                stop = self._stopped(before)
+                n_new = None if stop else self._n_to_enqueue()
+            while not stop:
+                stopped = self.run_one_batch(n_new)
+                with self.tracer.span("progress", emit=False):
+                    after = self.n_done()
+                    prog.update(after - before)
+                    try:
+                        prog.postfix(self.trials.best_trial["result"]["loss"])
+                    except AllTrialsFailed:
+                        pass
+                    # Stopped, or no progress possible.
+                    stop = stopped or self._stopped(after) or (
+                        after == before and not self.asynchronous)
+                    before = after
+                    n_new = None if stop else self._n_to_enqueue()
         return self
 
     def __iter__(self):
@@ -445,7 +459,7 @@ class FMinIter:
         each batch."""
         while not self._stopped(self.n_done()):
             before = self.n_done()
-            stopped = self.run_one_batch()
+            stopped = self.run_one_batch(self._n_to_enqueue())
             yield self.n_done()
             if stopped or (self.n_done() == before
                            and not self.asynchronous):

@@ -31,10 +31,12 @@ counts as no device operation), on the profiler's clock: in
 ``show trace`` names the card's idle time by the innermost span open
 then.  The event log is not touched: span sites emit no events.
 
-**Under a CUDA graph.**  The step's phase spans (``tpe.step.*``) run
-eagerly on the hosted path.  Under a capture (device mode, the graft
-entry's ``capture``) they time only the capture; a replay runs no Python
-and records nothing.
+**Under a CUDA graph.**  The step's phase spans (``tpe.step.draw``,
+``.split``, ``.groups``, ``.pick``) run where the step runs eagerly: a
+kernel's first hosted step, the liar batch, ``noise=`` calls, the CPU.
+Under a capture (device mode, the hosted step's, the graft entry's
+``capture``) they time only the capture; a replay runs no Python and
+records nothing: a hosted replay is one ``tpe.step.replay`` span.
 
 :class:`Tracer` keeps its own per-run totals on top of the store (under a
 lock: spans may run on several threads), mirrors every span into the
@@ -326,13 +328,18 @@ class Tracer:
     # -- spans ---------------------------------------------------------------
 
     @contextmanager
-    def span(self, name: str, trial=None, request=None):
+    def span(self, name: str, trial=None, request=None, emit=True):
         """A span of the store (recorded while it is armed, on the
-        thread's stack either way) counted into this Tracer's totals."""
+        thread's stack either way) counted into this Tracer's totals;
+        ``emit=False`` keeps it out of the event log (the loop's
+        ``progress``, which the JAX package's log does not have)."""
         sp = _Span(name, request, record=armed())
         sp.__enter__()
         try:
-            with self.events.span(name, trial=trial):
+            if emit:
+                with self.events.span(name, trial=trial):
+                    yield
+            else:
                 yield
         finally:
             sp.__exit__(None, None, None)
@@ -468,5 +475,5 @@ class NullTracer(Tracer):
     def __init__(self):
         super().__init__(trace_dir=None, device_trace=False)
 
-    def span(self, name: str, trial=None, request=None):
+    def span(self, name: str, trial=None, request=None, emit=True):
         return span(name, request)

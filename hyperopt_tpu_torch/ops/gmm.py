@@ -7,7 +7,9 @@ truncation bounds are ``[...]``.
 
 Sampling is inverse-CDF: the component is picked by a CDF compare on one
 uniform (or, ``gumbel=True``, by the Gumbel-argmax trick over ``K``
-uniforms), then the truncated normal is drawn as ``ndtri(U[Φ(a), Φ(b)])``.
+uniforms), then the truncated normal is drawn as ``ndtri(U[Φ(a), Φ(b)])``
+and clipped into ``[a, b]`` (the JAX package does not clip, and near a
+bound its float32 draw can land just outside).
 The uniforms are arguments, so callers (and tests) can hand in the same
 numbers the JAX version draws.
 
@@ -205,4 +207,8 @@ def gmm_sample(logw, mu, sigma, trunc_lo, trunc_hi, uc, u, gumbel=False):
     u = pa + u * (pb - pa)
     # Away from {0, 1}: ndtri(0/1) = ∓inf would escape the bounds.
     u = torch.clamp(u, _TINY, _U_MAX)
-    return torch.special.ndtri(u) * s + m
+    # Near a bound float32's ndtr reads the tail mass short (and the clamp
+    # above lifts it), so ndtri can land a hair outside: clip into the
+    # truncation, where the exact draw lies.
+    x = torch.special.ndtri(u) * s + m
+    return torch.minimum(torch.maximum(x, lo), hi)

@@ -55,10 +55,23 @@ one experiment per lane with its own history, generator, ``gamma`` and
 ``prior_weight`` (:meth:`_TpeKernel._suggest_lanes`,
 :meth:`_TpeKernel.suggest_fleet_seeded`); the solo step is its ``L = 1``
 case, and lane ``j`` proposes bit for bit what a solo call proposes.
+
+Hosted step graphs (:class:`_HostedStep`): on CUDA, a one-proposal step
+without ``noise`` on a plain :class:`_TpeKernel` replays a CUDA graph of
+that kernel's step instead of enqueueing its kernels one by one.  The
+kernel's first hosted step runs eagerly (it builds or loads the EI
+library); the second captures, and every later one replays, drawing the
+bits the eager step draws from the same history and seed.  The liar
+batch, ``noise=`` calls, ``dispatch.ShardedTpeKernel`` and the CPU run
+eagerly.  Always-on counters: ``tpe.graph.captures``,
+``tpe.graph.replays``, ``tpe.graph.capture_ms`` and
+``tpe.graph.eager_steps`` (steps that would replay but ran eagerly after
+a failed capture).
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 import threading
@@ -99,13 +112,15 @@ from .space import (
     resolve_device,
 )
 
-#: Functions that run under a CUDA graph capture (device mode's, and
-#: ``graft_entry_torch.capture`` of ``entry()``'s step), called from
-#: another module: the capture-purity analyzer starts there.
+#: Functions that run under a CUDA graph capture (device mode's, the
+#: hosted step's and ``graft_entry_torch.capture`` of ``entry()``'s step),
+#: called from another module or another object: the capture-purity
+#: analyzer starts there.
 CAPTURED_ENTRY_POINTS = (
     "_TpeKernel._suggest_one_tel",
     "_TpeKernel._suggest_lanes",
     "_TpeKernel.draw_noise",
+    "_HostedStep._step",
     "stack_noise",
     "_insert_row",
 )
@@ -132,6 +147,17 @@ _NEG = -3e38
 _LATTICE_CAP = 4096
 # Largest [C, chunk, K] temporary of the per-candidate quantized scorer.
 _Q_ELEMS = 1 << 24
+# Hosted step graphs kept per space (LRU), as device mode's
+# _RUN_CACHE_CAP: each pins its graph's memory pool.
+_HOSTED_GRAPH_CAP = 8
+# Stamps each hosted graph's last use, for the LRU.
+_HOSTED_CLOCK = itertools.count()
+# The hosted step graphs' always-on counters, made at import so that they
+# read 0 where no graph runs.
+_GRAPH_CAPTURES = _metrics_registry().counter("tpe.graph.captures")
+_GRAPH_REPLAYS = _metrics_registry().counter("tpe.graph.replays")
+_GRAPH_CAPTURE_MS = _metrics_registry().counter("tpe.graph.capture_ms")
+_GRAPH_EAGER_STEPS = _metrics_registry().counter("tpe.graph.eager_steps")
 
 
 class _ContGroup:
@@ -314,6 +340,11 @@ class _TpeKernel:
         self._tiers_lock = threading.Lock()
         # Whether a hosted step ran (tpe.cold_step_ms times the first).
         self.stepped = False
+        # The hosted step's graphs (_HostedStep), by float32 (gamma,
+        # prior_weight); uncapturable is set when a capture failed: later
+        # hosted steps run eagerly.
+        self.hosted = {}
+        self.uncapturable = False
 
         cont_q, cont_n, cat = [], [], []
         for s in cs.params:
@@ -980,6 +1011,169 @@ def wait_prewarm():
         t.join()
 
 
+class _HostedCaptureError(RuntimeError):
+    """A capture of the hosted step failed."""
+
+
+class _HostedStep:
+    """One kernel's hosted TPE step (one proposal, uniforms from the seed's
+    generator) as a CUDA graph, at fixed float32 ``gamma`` and
+    ``prior_weight``, which the graph holds as scalars.
+
+    The graph reads static history buffers ``hist`` (``[n_cap, P]`` and
+    ``[n_cap]``: the ring that feeds a study is that study's own, so its
+    addresses cannot be captured) and draws from ``gen``, registered with
+    the graph and seeded before each replay, as device mode's generators
+    are: a replay proposes the bits :meth:`_TpeKernel.__call__` proposes
+    from the same history and seed.  :meth:`run` holds ``lock`` from the
+    copy-in to the clone of the output row, and first makes the caller's
+    stream wait for the event recorded after the previous clone, so no
+    replay reads buffers that another caller, on another stream, is
+    writing."""
+
+    def __init__(self, kern, gamma, prior_weight):
+        dev = kern.device
+        n, p = kern.n_cap, kern.cs.n_params
+        self.kern = kern
+        self.gamma = gamma
+        self.prior_weight = prior_weight
+        self.hist = (torch.zeros((n, p), dtype=torch.float32, device=dev),
+                     torch.zeros((n, p), dtype=torch.bool, device=dev),
+                     torch.full((n,), math.inf, dtype=torch.float32,
+                                device=dev),
+                     torch.zeros((n,), dtype=torch.bool, device=dev))
+        self.gen = torch.Generator(device=dev)
+        self.lock = threading.Lock()
+        self.done = torch.cuda.Event()
+        self.graph = None
+        self.row = None
+        self.used = next(_HOSTED_CLOCK)
+
+    def _step(self):
+        """The captured body: the kernel's step on the static buffers,
+        drawing from ``gen``; the proposed row ``f32[P]``."""
+        return self.kern._suggest_one_tel(*self.hist, self.gamma,
+                                          self.prior_weight,
+                                          generator=self.gen)[0]
+
+    def _capture(self):
+        """Run the step once on a side stream, then capture it; the caller
+        holds ``lock`` and has filled the static buffers.  Raises
+        :class:`_HostedCaptureError` when the capture fails."""
+        t0 = perf_counter()
+        dev = self.kern.device
+        # A prewarm thread uploading a kernel's constants would break the
+        # capture.
+        wait_prewarm()
+        try:
+            with torch.cuda.device(dev):
+                cur = torch.cuda.current_stream(dev)
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(cur)
+                graph = torch.cuda.CUDAGraph()
+                graph.register_generator_state(self.gen)
+                with torch.cuda.stream(side):
+                    self._step()
+                    # Not torch.cuda.graph, which syncs the whole device
+                    # first; thread-local, since the service steps other
+                    # tenants on other threads meanwhile.
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        row = self._step()
+                    finally:
+                        graph.capture_end()
+                cur.wait_stream(side)
+        except RuntimeError as e:
+            raise _HostedCaptureError(str(e)) from e
+        self.graph, self.row = graph, row
+        ms = (perf_counter() - t0) * 1e3
+        _GRAPH_CAPTURES.inc()
+        _GRAPH_CAPTURE_MS.inc(ms)
+        logging.getLogger(__name__).info(
+            "captured the hosted TPE step (n_cap=%d) in %.1f ms",
+            self.kern.n_cap, ms)
+
+    def run(self, hist, seed):
+        """The row ``f32[P]`` proposed for the padded history ``hist``
+        (four tensors on the kernel's device) under ``seed``: a fresh
+        tensor, queued on the caller's current stream.  The first call
+        captures the graph."""
+        with self.lock:
+            stream = torch.cuda.current_stream(self.kern.device)
+            stream.wait_event(self.done)
+            for buf, t in zip(self.hist, hist):
+                buf.copy_(t)
+            if self.graph is None:
+                self._capture()
+            self.gen.manual_seed(int(seed) % (2 ** 32))
+            self.graph.replay()
+            row = self.row.clone()
+            self.done.record(stream)
+        return row
+
+    def retire(self):
+        """Wait for the last replay to finish, so that the graph's pool and
+        buffers can be freed."""
+        self.done.synchronize()
+
+
+def _takes_graph(kern, dev, n, noise):
+    """Whether a hosted step replays its kernel's graph: one proposal on
+    CUDA, uniforms from the seed, on a plain :class:`_TpeKernel` (not a
+    subclass such as ``dispatch.ShardedTpeKernel``, whose argmax reduces
+    over its ranks)."""
+    return (dev.type == "cuda" and n == 1 and noise is None
+            and type(kern) is _TpeKernel)
+
+
+def _replay_step(kern, hist, gamma, prior_weight, seed):
+    """The hosted step's row from ``kern``'s graph at these ``gamma`` and
+    ``prior_weight`` (held by the kernel; at most ``_HOSTED_GRAPH_CAP``
+    per space, least recently used out), captured on first use; None when
+    the kernel cannot be captured: the caller then runs the step eagerly.
+    A failed capture is logged and marks the kernel uncapturable."""
+    if kern.uncapturable:
+        return None
+    key = (float(np.float32(gamma)), float(np.float32(prior_weight)))
+    step = kern.hosted.get(key)
+    if step is None:
+        old = []
+        with _KERNELS_LOCK:
+            step = kern.hosted.get(key)
+            if step is None:
+                old = _evict_hosted(kern.cs)
+                step = kern.hosted[key] = _HostedStep(kern, *key)
+        for evicted in old:
+            evicted.retire()
+    step.used = next(_HOSTED_CLOCK)
+    try:
+        with _trace.span("tpe.step.replay"):
+            row = step.run(hist, seed)
+    except _HostedCaptureError:
+        logging.getLogger(__name__).warning(
+            "could not capture the hosted TPE step (n_cap=%d); its steps "
+            "run eagerly", kern.n_cap, exc_info=True)
+        kern.uncapturable = True
+        with _KERNELS_LOCK:
+            kern.hosted.pop(key, None)
+        return None
+    _GRAPH_REPLAYS.inc()
+    return row
+
+
+def _evict_hosted(cs):
+    """Take the least recently used hosted graphs off the space's kernels
+    until one more fits in ``_HOSTED_GRAPH_CAP``, and return them (the
+    caller retires them outside the lock).  The caller holds
+    ``_KERNELS_LOCK``."""
+    held = sorted(((step.used, kern.hosted, key)
+                   for kern in cs.__dict__.get("_tpe_kernels", {}).values()
+                   for key, step in kern.hosted.items()),
+                  key=lambda t: t[0])
+    n = len(held) - _HOSTED_GRAPH_CAP + 1
+    return [hosted.pop(key) for _, hosted, key in held[:max(n, 0)]]
+
+
 def _batch_size_for(n):
     """Liar-scan steps for ``n`` proposals: ``n`` rounded up to a power of
     two, so that every batch size in ``(m/2, m]`` runs the same number of
@@ -1064,9 +1258,10 @@ def suggest(new_ids, domain, trials, seed,
     history read from the trials), ``tpe.startup`` (a startup batch and
     its fetch) or ``tpe.acquire`` (the kernel's lookup; ``tpe.kernel_build``
     on a miss), ``tpe.feed`` (the device history), ``tpe.step`` (the
-    step's enqueue: ``tpe.step.draw``, ``.split``, ``.groups``,
-    ``.pick``) and ``tpe.fetch`` (the wait for the rows); then
-    ``tpe.docs`` (the trial documents)."""
+    step's enqueue: ``tpe.step.replay`` where the step replays its
+    graph, else ``tpe.step.draw``, ``.split``, ``.groups``, ``.pick``)
+    and ``tpe.fetch`` (the wait for the rows); then ``tpe.docs`` (the
+    trial documents)."""
     with _trace.span("tpe.suggest", request=new_ids[0] if len(new_ids)
                      else None):
         return suggest_materialize(suggest_dispatch(
@@ -1227,15 +1422,23 @@ def _dispatch_with(acquire, new_ids, domain, trials, seed, prior_weight,
     if cold:
         built_s = ei_build_seconds()
     with _trace.span("tpe.step"):
-        gen = (make_generator(dev, int(seed) % (2 ** 32)) if noise is None
-               else None)
-        if n == 1:
-            rows, _ = kern(*hist, gamma, prior_weight, generator=gen,
-                           noise=noise)
-        else:
-            rows, _ = kern.suggest_many(m, n_rows, *hist, gamma,
-                                        prior_weight, generator=gen,
-                                        noises=noise)
+        rows = None
+        # A kernel's first step runs eagerly: it builds or loads the EI
+        # library, which must not happen inside a capture.
+        if not cold and _takes_graph(kern, dev, n, noise):
+            rows = _replay_step(kern, hist, gamma, prior_weight, seed)
+            if rows is None:
+                _GRAPH_EAGER_STEPS.inc()
+        if rows is None:
+            gen = (make_generator(dev, int(seed) % (2 ** 32))
+                   if noise is None else None)
+            if n == 1:
+                rows, _ = kern(*hist, gamma, prior_weight, generator=gen,
+                               noise=noise)
+            else:
+                rows, _ = kern.suggest_many(m, n_rows, *hist, gamma,
+                                            prior_weight, generator=gen,
+                                            noises=noise)
     # Host clocks only: on the card this is the enqueue, not the step.
     dms = (perf_counter() - t_disp) * 1e3
     _obs_ms(reg, "suggest.dispatch_ms", dms)

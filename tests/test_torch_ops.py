@@ -8,6 +8,8 @@ taken in another order (weight normalizers); 1e-4 where the two
 libraries' special functions (log_ndtr, ndtr, ndtri) differ in the last
 bits."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -194,6 +196,48 @@ def test_gmm_sample_same_uniforms(lo, hi):
                         T(np.stack(us)))
     close(got, np.stack(want), rtol=1e-4, atol=1e-4)
     assert ((got.numpy() >= lo) & (got.numpy() <= hi)).all()
+
+
+@pytest.mark.parametrize("u0, mu_lo", [(0.0, 0.0), (1e-9, 0.0),
+                                        (1.0 - 2.0 ** -24, 12.0)])
+def test_gmm_sample_at_the_end_uniforms_stays_in_bounds(u0, mu_lo):
+    """Uniforms at or next to the ends of [0, 1), which the card's
+    ``torch.rand`` does return, on components near a bound: float32's
+    tail mass read short would put ``ndtri`` outside [lo, hi]."""
+    rng = np.random.default_rng(11)
+    n = 20000
+    mu = (mu_lo + 3.0 * rng.random((n, 1))).astype(np.float32)
+    sg = np.exp(4.0 * rng.random((n, 1)) - 3.0).astype(np.float32)
+    got = gt.gmm_sample(T(np.zeros((n, 1), np.float32)), T(mu), T(sg),
+                        T(np.zeros(n, np.float32)),
+                        T(np.full(n, 15.0, np.float32)),
+                        T(rng.random((n, 1)).astype(np.float32)),
+                        T(np.full((n, 1), u0, np.float32))).numpy()
+    assert ((got >= 0.0) & (got <= 15.0)).all(), (got.min(), got.max())
+
+
+@pytest.mark.parametrize("u0", [0.0, 1e-9, 1.0 - 2.0 ** -24])
+@pytest.mark.parametrize("low, high", [(math.log(1e-3), math.log(10.0)),
+                                       (-6.0, 0.0)])
+def test_gmm_sample_log_column_stays_in_its_support_after_exp(u0, low,
+                                                              high):
+    """A log column draws in log space, clipped into the float32 bounds,
+    and its value is the float32 exp of the draw: at the ends of [0, 1)
+    it stays in the prior's support [exp(low), exp(high)] up to float32's
+    rounding of the bounds and of exp (two ulps)."""
+    rng = np.random.default_rng(12)
+    n = 20000
+    lo32, hi32 = np.float32(low), np.float32(high)
+    mu = (low + (high - low) * rng.random((n, 1))).astype(np.float32)
+    sg = np.exp(3.0 * rng.random((n, 1)) - 3.0).astype(np.float32)
+    z = gt.gmm_sample(T(np.zeros((n, 1), np.float32)), T(mu), T(sg),
+                      T(np.full(n, lo32)), T(np.full(n, hi32)),
+                      T(rng.random((n, 1)).astype(np.float32)),
+                      T(np.full((n, 1), u0, np.float32)))
+    x = torch.exp(z).numpy().astype(np.float64)
+    ulp2 = 2.0 ** -22
+    assert (x >= math.exp(low) * (1.0 - ulp2)).all(), x.min()
+    assert (x <= math.exp(high) * (1.0 + ulp2)).all(), x.max()
 
 
 def test_onehot_lookup_contract():

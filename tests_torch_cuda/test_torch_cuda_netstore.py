@@ -15,6 +15,7 @@ import torch
 import hyperopt_tpu_torch as ht
 from hyperopt_tpu_torch import backends, base, rand, tpe
 from hyperopt_tpu_torch.backends import contract
+from hyperopt_tpu_torch.obs.metrics import registry
 from hyperopt_tpu_torch.ops import ei_scores as ek
 from hyperopt_tpu_torch.parallel.netstore import (NetTrials, StoreServer,
                                                   server_suggest)
@@ -28,6 +29,12 @@ HEADS = {"tpe_bf16_card": partial(tpe.suggest, ei_precision="bf16"),
 
 def _objective(cfg):
     return (cfg["x"] - 1.0) ** 2 + cfg["q"]
+
+
+def _graphs():
+    snap = registry().snapshot()["counters"]
+    return {k: snap.get(f"tpe.graph.{k}", 0.0)
+            for k in ("captures", "replays", "eager_steps")}
 
 
 @pytest.fixture(scope="module")
@@ -68,13 +75,27 @@ def test_server_suggest_on_cuda_equals_in_process(served, name, low):
     srv, dom, history = served
     nt, local = _client(srv, dom, history, f"eq-{name}")
     assert nt.load_domain().cs.device is None
+    eager = []
     for seed in range(3):
         ek.reset_launches()
+        g0 = _graphs()
         got = server_suggest([60], None, nt, seed, algo=name)
-        by = dict(ek.ei_scores.launches_by)
-        assert by == {k: int(k == low) for k in by}, by
+        g = {k: _graphs()[k] - g0[k] for k in g0}
+        # The step runs the named lowering once: launched eagerly (the
+        # server kernel's first step), or replayed from the hosted step
+        # graph, which recorded it once while its capture's warm-up
+        # launched it once.
+        eager.append(1 - g["replays"])
+        assert ek.ei_scores.recorded_by == {
+            k: g["captures"] * (k == low) for k in ek.ei_scores.recorded_by}
+        assert ek.ei_scores.launches_by == {
+            k: (eager[-1] + g["captures"]) * (k == low)
+            for k in ek.ei_scores.launches_by}
+        assert g["eager_steps"] == 0
         want = contract.server_table()[name]([60], dom, local, seed)
         assert got == want
+    # At most the first step on the kernel runs eagerly; the others replay.
+    assert eager in ([1, 0, 0], [0, 0, 0]), eager
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ import torch
 
 import hyperopt_tpu_torch as ht
 from hyperopt_tpu_torch import base, fleet, history, rand, tpe
+from hyperopt_tpu_torch.obs.metrics import registry
 from hyperopt_tpu_torch.ops import ei_scores as ek
 from hyperopt_tpu_torch.parallel.netstore import NetTrials
 from hyperopt_tpu_torch.service.server import ServiceServer
@@ -30,6 +31,12 @@ TIMEOUT = 60.0
 
 def _objective(cfg):
     return (cfg["x"] - 1.0) ** 2 + cfg["q"]
+
+
+def _graphs():
+    snap = registry().snapshot()["counters"]
+    return {k: snap.get(f"tpe.graph.{k}", 0.0)
+            for k in ("captures", "replays", "eager_steps")}
 
 
 def _history(n, seed, exp_key):
@@ -115,13 +122,24 @@ def test_failed_dispatch_goes_solo_with_equal_rows_and_logs(
     monkeypatch.setattr(fleet.CohortScheduler, "suggest_dispatch", broken)
     d0 = fleet.dispatches
     ek.reset_launches()
+    g0 = _graphs()
     with caplog.at_level(logging.ERROR,
                          logger="hyperopt_tpu_torch.service.server"):
         got = _window(tenants, seeds)
-    by = dict(ek.ei_scores.launches_by)
+    g = {k: _graphs()[k] - g0[k] for k in g0}
     assert got == solo
     assert fleet.dispatches == d0
-    assert by == {k: N_TENANTS * (k == "f32") for k in by}, by
+    # K1 once per solo step: launched eagerly (a kernel's first step), or
+    # replayed from the hosted step graph, which recorded it once while
+    # its capture's warm-up launched it once.
+    eager = N_TENANTS - g["replays"]
+    assert 0 <= eager <= N_TENANTS and g["captures"] <= g["replays"]
+    assert ek.ei_scores.recorded_by == {
+        k: g["captures"] * (k == "f32") for k in ek.ei_scores.recorded_by}
+    assert ek.ei_scores.launches_by == {
+        k: (eager + g["captures"]) * (k == "f32")
+        for k in ek.ei_scores.launches_by}
+    assert g["eager_steps"] == 0
     assert any("cohort gate dispatch failed" in r.getMessage()
                for r in caplog.records)
 
