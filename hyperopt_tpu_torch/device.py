@@ -78,13 +78,17 @@ Counters (plain ints, like ``ei_scores.launches``): ``fetch_syncs``
 (device→host fetches that wait on the card), ``segments``,
 ``trials_landed``, ``captures``, ``replays``, ``run_cache_hits``,
 ``run_cache_misses`` and ``eager_steps`` (trials run without a graph:
-only on the CPU).  All but ``replays`` and ``eager_steps`` (per trial)
-have registry twins (``device.fetch_syncs``, ``device.segments``,
-``device.trials_landed``, ``device.captures``, ``device.run_cache.hits``
-and ``.misses``), and an armed run adds the ``<mode>.<stride>`` twins of
-the first two.  ``ei_scores.launches`` counts the EI kernel's eager
-launches (the warm-up steps); a capture adds to ``ei_scores.recorded_by``
-instead, and replays pass through neither.
+only on the CPU).  All but ``eager_steps`` have registry twins
+(``device.fetch_syncs``, ``device.segments``, ``device.trials_landed``,
+``device.captures``, ``device.run_cache.hits`` and ``.misses``, and
+``device.replays``, which moves once per :meth:`_Segment.run`), and an
+armed run adds the ``<mode>.<stride>`` twins of the first two.  Always
+on, made at import: the counter ``device.capture_ms`` (each capture's
+warm-up and capture, wall milliseconds) and the gauge
+``device.pool_bytes`` (the last captured graph's pool).
+``ei_scores.launches`` counts the EI kernel's eager launches (the warm-up
+steps); a capture adds to ``ei_scores.recorded_by`` instead, and replays
+pass through neither.
 
 **Meshes** (``dispatch.py``).  ``fmin_device(mesh=)`` with one run
 captures the step with :class:`dispatch.ShardedTpeKernel`: each rank of
@@ -170,6 +174,9 @@ _TWINS = {"fetch_syncs": "device.fetch_syncs", "segments": "device.segments",
           "captures": "device.captures",
           "run_cache_hits": "device.run_cache.hits",
           "run_cache_misses": "device.run_cache.misses"}
+_CAPTURE_MS = _metrics.registry().counter("device.capture_ms")
+_POOL_BYTES = _metrics.registry().gauge("device.pool_bytes")
+_REPLAYS = _metrics.registry().counter("device.replays")
 
 
 def reset_counters():
@@ -352,6 +359,7 @@ class _Segment:
         """Warm up on a side stream, then capture :meth:`_step`.  While
         ``limit`` is 0 every write goes to the spare rows."""
         dev = self.device
+        t0 = time.perf_counter()
         # The sampler's constants are uploaded once per device: before the
         # warm-up, whose sync check would take the upload for a round trip.
         self.cs._consts(dev)
@@ -381,6 +389,8 @@ class _Segment:
                                    f"{e}") from e
         self.graph = graph
         self.pool_bytes = _pool_bytes(graph)
+        _CAPTURE_MS.inc((time.perf_counter() - t0) * 1e3)
+        _POOL_BYTES.set(self.pool_bytes)
         _bump(captures=1)
         logger.info("device mode: captured the TPE step (n_cap=%d, %d "
                     "lanes); its graph's memory pool holds %d bytes",
@@ -445,36 +455,43 @@ class _Segment:
                       for nz in noises]
         polls = deque()
         stop_poll = self._patience != _NO_PATIENCE
-        for t, lane_seeds in enumerate(seeds):
-            for j, seed in enumerate(lane_seeds):
-                s = int(seed) % (2 ** 32)
-                self.gens[2 * j].manual_seed(s)
-                self.gens[2 * j + 1].manual_seed(s)
-            if self.graph is not None:
-                self.graph.replay()
-                replays += 1
-            else:
-                self._step(None if noises is None else noises[t])
-                eager_steps += 1
-            if not stop_poll:
-                continue
-            if self.graph is None:
-                if self._stopped(self.since):
-                    return
-                continue
-            if (t + 1) % _POLL_EVERY == 0:
-                since = torch.empty((self.n_lanes,), dtype=torch.int64,
-                                    pin_memory=True)
-                since.copy_(self.since, non_blocking=True)
-                landed = torch.cuda.Event()
-                landed.record()
-                polls.append((since, landed))
-            while polls and (polls[0][1].query()
-                             or len(polls) * _POLL_EVERY > _RUN_AHEAD):
-                since, landed = polls.popleft()
-                landed.synchronize()
-                if self._stopped(since):
-                    return
+        ran = 0
+        try:
+            for t, lane_seeds in enumerate(seeds):
+                for j, seed in enumerate(lane_seeds):
+                    s = int(seed) % (2 ** 32)
+                    self.gens[2 * j].manual_seed(s)
+                    self.gens[2 * j + 1].manual_seed(s)
+                if self.graph is not None:
+                    self.graph.replay()
+                    replays += 1
+                    ran += 1
+                else:
+                    self._step(None if noises is None else noises[t])
+                    eager_steps += 1
+                if not stop_poll:
+                    continue
+                if self.graph is None:
+                    if self._stopped(self.since):
+                        return
+                    continue
+                if (t + 1) % _POLL_EVERY == 0:
+                    since = torch.empty((self.n_lanes,), dtype=torch.int64,
+                                        pin_memory=True)
+                    since.copy_(self.since, non_blocking=True)
+                    landed = torch.cuda.Event()
+                    landed.record()
+                    polls.append((since, landed))
+                while polls and (polls[0][1].query()
+                                 or len(polls) * _POLL_EVERY > _RUN_AHEAD):
+                    since, landed = polls.popleft()
+                    landed.synchronize()
+                    if self._stopped(since):
+                        return
+        finally:
+            # The registry twin moves once a segment, not once a replay.
+            if ran:
+                _REPLAYS.inc(ran)
 
     def _stopped(self, since):
         """Whether every lane's no-progress count has reached the

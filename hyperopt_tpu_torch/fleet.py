@@ -1,8 +1,11 @@
 """Fleet mode: many experiments per dispatch on one GPU.
 
 Counterpart of ``hyperopt_tpu/fleet.py``.  A solo TPE step leaves the card
-mostly empty: ~850 small kernels over ``[1024, 31]``-sized tensors.  The
-fleet stacks experiments of one search space along a leading lane axis of
+mostly empty: on the 53-parameter flagship space nearly 1,000 small
+kernels over ``[1024, 31]``-sized tensors, where one replay of the
+fleet's step for 64 such lanes runs about 1,760 (the benchmark's
+``fleet.kernels_per_replay`` in ``flagship50.fleet64``).  The fleet
+stacks experiments of one search space along a leading lane axis of
 the same step (``tpe._TpeKernel._suggest_lanes``): lanes fold into the
 column axis of the ops, so one launch of each kernel serves them all, the
 EI kernel included (``31·L`` columns on its ``grid.y``).  Two halves:
@@ -33,7 +36,14 @@ histogram and the ``fleet.cohort_size_last``, ``fleet.cohort_tier_last``
 and ``fleet.padding_waste`` gauges, and each cohort emits a
 ``fleet_dispatch`` event.  ``fmin_fleet`` carries device mode's telemetry
 slab with a lane axis (``obs/devtel.py``): each lane's info gets its slab
-reduced over the run, equal bit for bit to its solo run's.
+reduced over the run, equal bit for bit to its solo run's.  Its host path
+has spans of the span store (``obs/trace.py``; they record only while a
+profiler or a Tracer with a trace dir records): one ``fleet.segment`` per
+segment, holding ``fleet.run`` (the lanes' trial seeds drawn and the
+segment's replays enqueued; a replay runs no Python), ``fleet.fetch``
+(the segment's one fetch: the wait for the card and the copy, and with a
+mesh the all-gather) and ``fleet.land`` (every lane's rows landed into
+its ``Trials``).
 
 Both halves take the TPE step's every keyword, ``multivariate`` and the
 sampler/split/fit lowerings included.  Meshes (``dispatch.py``): a cohort
@@ -58,6 +68,7 @@ from . import dispatch as _dispatch
 from . import history as _rhist
 from .obs import costs as _costs
 from .obs import devtel as _devtel
+from .obs import trace as _trace
 from .obs.events import EVENTS
 from .obs.metrics import registry as _registry
 from .space import CompiledSpace, compile_space, resolve_device
@@ -582,40 +593,45 @@ def fmin_fleet(fn, space, n_lanes, max_evals, seed=0, sync_stride=None,
         while i < max_evals:
             s = (max_evals - i if sync_stride is None
                  else min(sync_stride, max_evals - i))
-            t0 = time.perf_counter()
-            seg.run(_device._lane_seeds(rstates, s))
-            vals, acts, losses, _, tel = seg.fetch_slab(i, i + s)
-            if n_dp > 1:
-                vals, acts, losses, *tel = _dispatch.gather_lanes(
-                    mesh, [vals, acts, losses] + list(tel or ()))
-                tel = tel or None
-            t1 = time.perf_counter()
-            parts.append((vals, acts, losses))
-            if telemetry:
-                slab = _devtel.slab_host(losses, *tel, n_ok, best,
-                                         seg.n_startup)
-                slabs.append(slab)
-                n_ok += np.isfinite(losses).sum(axis=1)
-                best = slab["best_loss"]
-                _devtel.bump_labeled(reg, "fleet", stride_label)
-                cost_key = ("device", "fleet", s, n_lanes)
-                if fresh:
-                    fresh = False
-                    _costs.record_compile(
-                        "device", cost_key, n_cap=seg.n_cap, P=p, m=s,
-                        tier=n_lanes, compile_s=seg.build_s,
-                        memory_bytes=seg.pool_bytes)
-                # Fleet segments backfill the span and the aggregates; the
-                # per-trial anchors are solo mode's (L·s instants per
-                # boundary would swamp the ring).
-                _devtel.backfill_segment(
-                    reg, mode="fleet", stride=stride_label, slab_h=slab,
-                    n_trials=s, n_lanes=n_lanes, t0_mono=t0, t1_mono=t1,
-                    seg_index=len(parts) - 1, cost_key=cost_key)
-            if trials_list is not None:
-                for j, trials in enumerate(trials_list):
-                    _device._land(trials, cs, vals[j], acts[j], losses[j])
-                _device._bump(trials_landed=s * n_lanes)
+            with _trace.span("fleet.segment"):
+                t0 = time.perf_counter()
+                with _trace.span("fleet.run"):
+                    seg.run(_device._lane_seeds(rstates, s))
+                with _trace.span("fleet.fetch"):
+                    vals, acts, losses, _, tel = seg.fetch_slab(i, i + s)
+                    if n_dp > 1:
+                        vals, acts, losses, *tel = _dispatch.gather_lanes(
+                            mesh, [vals, acts, losses] + list(tel or ()))
+                        tel = tel or None
+                t1 = time.perf_counter()
+                parts.append((vals, acts, losses))
+                if telemetry:
+                    slab = _devtel.slab_host(losses, *tel, n_ok, best,
+                                             seg.n_startup)
+                    slabs.append(slab)
+                    n_ok += np.isfinite(losses).sum(axis=1)
+                    best = slab["best_loss"]
+                    _devtel.bump_labeled(reg, "fleet", stride_label)
+                    cost_key = ("device", "fleet", s, n_lanes)
+                    if fresh:
+                        fresh = False
+                        _costs.record_compile(
+                            "device", cost_key, n_cap=seg.n_cap, P=p, m=s,
+                            tier=n_lanes, compile_s=seg.build_s,
+                            memory_bytes=seg.pool_bytes)
+                    # Fleet segments backfill the span and the aggregates;
+                    # the per-trial anchors are solo mode's (L·s instants
+                    # per boundary would swamp the ring).
+                    _devtel.backfill_segment(
+                        reg, mode="fleet", stride=stride_label, slab_h=slab,
+                        n_trials=s, n_lanes=n_lanes, t0_mono=t0, t1_mono=t1,
+                        seg_index=len(parts) - 1, cost_key=cost_key)
+                if trials_list is not None:
+                    with _trace.span("fleet.land"):
+                        for j, trials in enumerate(trials_list):
+                            _device._land(trials, cs, vals[j], acts[j],
+                                          losses[j])
+                        _device._bump(trials_landed=s * n_lanes)
             i += s
     vals, active, losses = (np.concatenate(a, axis=1) for a in zip(*parts))
     out = []
