@@ -140,28 +140,42 @@ def spec_from_misc(misc):
     return spec
 
 
+def _doc_columns(cs: CompiledSpace):
+    """``(label, pid, is_int)`` of every parameter in order, the columns a
+    trial doc is built from.  Cached on the space: threads that compute it
+    together all return the first one stored."""
+    cols = cs.__dict__.get("_doc_columns")
+    if cols is None:
+        cols = cs.__dict__.setdefault("_doc_columns", tuple(
+            (p.label, p.pid, p.is_int) for p in cs.params))
+    return cols
+
+
 def docs_from_samples(cs: CompiledSpace, new_ids, vals, active,
                       exp_key=None, cmd=None):
     """Package sampled rows into trial docs.
 
     ``vals``/``active`` are [n, P] host arrays; inactive parameters get empty
-    idxs/vals lists (unchosen conditional branches)."""
-    vals = np.asarray(vals)
-    active = np.asarray(active)
+    idxs/vals lists (unchosen conditional branches).  The rows are read as
+    Python lists once per call, so every value lands as a plain ``int`` or
+    ``float``."""
+    cols = _doc_columns(cs)
+    vals = np.asarray(vals).tolist()
+    active = np.asarray(active).tolist()
     docs = []
-    for row, tid in enumerate(new_ids):
+    for i, tid in enumerate(new_ids):
+        row, act = vals[i], active[i]
         doc = new_trial_doc(tid, exp_key=exp_key, cmd=cmd)
         idxs_d, vals_d = {}, {}
-        for spec in cs.params:
-            if active[row, spec.pid]:
-                idxs_d[spec.label] = [tid]
-                v = vals[row, spec.pid]
+        for label, pid, is_int in cols:
+            if act[pid]:
+                idxs_d[label] = [tid]
+                v = row[pid]
                 # round() not int(): f32 integer values can sit a ulp below.
-                vals_d[spec.label] = [int(round(float(v))) if spec.is_int
-                                      else float(v)]
+                vals_d[label] = [int(round(v)) if is_int else float(v)]
             else:
-                idxs_d[spec.label] = []
-                vals_d[spec.label] = []
+                idxs_d[label] = []
+                vals_d[label] = []
         doc["misc"]["idxs"] = idxs_d
         doc["misc"]["vals"] = vals_d
         docs.append(doc)

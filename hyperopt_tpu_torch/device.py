@@ -74,12 +74,22 @@ into events, metrics, costs, health and flight bundles at each boundary.
 Armed and disarmed steps run the same proposal ops, so they land the same
 trials bit for bit.
 
+**Landing a fleet segment** (:func:`_land_lanes`).  A fleet segment lands
+``L × sync_stride`` documents of ~110 tracked containers each; the
+cyclic collector would rescan the growing ``Trials`` each time the heap
+grew by a quarter, though the documents hold no cycles.  The lander holds
+the collector off across the whole segment (all lanes) and restores the
+state it found, also on an exception; a caller who turned it off keeps
+it off.
+
 Counters (plain ints, like ``ei_scores.launches``): ``fetch_syncs``
 (device→host fetches that wait on the card), ``segments``,
-``trials_landed``, ``captures``, ``replays``, ``run_cache_hits``,
-``run_cache_misses`` and ``eager_steps`` (trials run without a graph:
-only on the CPU).  All but ``eager_steps`` have registry twins
-(``device.fetch_syncs``, ``device.segments``, ``device.trials_landed``,
+``trials_landed``, ``land_gc_held`` (fleet segments landed with the
+collector held; 0 when the caller had turned it off), ``captures``,
+``replays``, ``run_cache_hits``, ``run_cache_misses`` and
+``eager_steps`` (trials run without a graph: only on the CPU).  All but
+``eager_steps`` have registry twins (``device.fetch_syncs``,
+``device.segments``, ``device.trials_landed``, ``device.land_gc_held``,
 ``device.captures``, ``device.run_cache.hits`` and ``.misses``, and
 ``device.replays``, which moves once per :meth:`_Segment.run`), and an
 armed run adds the ``<mode>.<stride>`` twins of the first two.  Always
@@ -102,6 +112,8 @@ of the mesh calls with the same arguments.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import inspect
 import logging
 import math
@@ -161,6 +173,7 @@ _CACHE_LOCK = threading.Lock()
 fetch_syncs = 0
 segments = 0
 trials_landed = 0
+land_gc_held = 0
 captures = 0
 replays = 0
 run_cache_hits = 0
@@ -171,6 +184,7 @@ eager_steps = 0
 # The counters' registry twins (per segment or per run, not per trial).
 _TWINS = {"fetch_syncs": "device.fetch_syncs", "segments": "device.segments",
           "trials_landed": "device.trials_landed",
+          "land_gc_held": "device.land_gc_held",
           "captures": "device.captures",
           "run_cache_hits": "device.run_cache.hits",
           "run_cache_misses": "device.run_cache.misses"}
@@ -182,10 +196,10 @@ _REPLAYS = _metrics.registry().counter("device.replays")
 def reset_counters():
     """Set every counter of this module to 0 (the registry twins keep
     counting)."""
-    global fetch_syncs, segments, trials_landed, captures, replays
-    global run_cache_hits, run_cache_misses, eager_steps
-    fetch_syncs = segments = trials_landed = captures = replays = 0
-    run_cache_hits = run_cache_misses = eager_steps = 0
+    global fetch_syncs, segments, trials_landed, land_gc_held, captures
+    global replays, run_cache_hits, run_cache_misses, eager_steps
+    fetch_syncs = segments = trials_landed = land_gc_held = captures = 0
+    replays = run_cache_hits = run_cache_misses = eager_steps = 0
 
 
 def _bump(**deltas):
@@ -777,6 +791,30 @@ def _land(trials, cs, rows, acts, losses):
     trials.insert_trial_docs(docs)
     trials.refresh()
     return new_ids
+
+
+@contextlib.contextmanager
+def _gc_held():
+    """Hold the cyclic collector off for the block; yields whether it was
+    on.  On exit it is turned back on only if it was on at entry."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield was
+    finally:
+        if was:
+            gc.enable()
+
+
+def _land_lanes(trials_list, cs, vals, acts, losses):
+    """Land one fleet segment: lane ``j``'s rows ``vals[j]``, ``acts[j]``,
+    ``losses[j]`` into ``trials_list[j]`` (:func:`_land`), in lane order,
+    with the collector held across all lanes (the module doc)."""
+    with _gc_held() as held:
+        for j, trials in enumerate(trials_list):
+            _land(trials, cs, vals[j], acts[j], losses[j])
+    if held:
+        _bump(land_gc_held=1)
 
 
 def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,

@@ -43,7 +43,8 @@ segment, holding ``fleet.run`` (the lanes' trial seeds drawn and the
 segment's replays enqueued; a replay runs no Python), ``fleet.fetch``
 (the segment's one fetch: the wait for the card and the copy, and with a
 mesh the all-gather) and ``fleet.land`` (every lane's rows landed into
-its ``Trials``).
+its ``Trials`` by ``device._land_lanes``, with the cyclic collector held
+off across the segment).
 
 Both halves take the TPE step's every keyword, ``multivariate`` and the
 sampler/split/fit lowerings included.  Meshes (``dispatch.py``): a cohort
@@ -628,9 +629,8 @@ def fmin_fleet(fn, space, n_lanes, max_evals, seed=0, sync_stride=None,
                         seg_index=len(parts) - 1, cost_key=cost_key)
                 if trials_list is not None:
                     with _trace.span("fleet.land"):
-                        for j, trials in enumerate(trials_list):
-                            _device._land(trials, cs, vals[j], acts[j],
-                                          losses[j])
+                        _device._land_lanes(trials_list, cs, vals, acts,
+                                            losses)
                         _device._bump(trials_landed=s * n_lanes)
             i += s
     vals, active, losses = (np.concatenate(a, axis=1) for a in zip(*parts))

@@ -14,9 +14,9 @@ milliseconds and a same-named millisecond histogram); the resident ring's
 ``history.upload_bytes``/``append_hits``/``rebuilds``/``evicted``/
 ``order_violations`` (registry twins of ``history.py``'s plain ints);
 device mode's ``device.fetch_syncs``/``segments``/``trials_landed``/
-``run_cache.hits``/``misses``, their ``<mode>.<stride>`` twins and the
-telemetry slab's ``device.telemetry.*`` (``obs/devtel.py``); the fleet's
-``fleet.*``; ``faults.injected.<point>``.
+``land_gc_held``/``run_cache.hits``/``misses``, their ``<mode>.<stride>``
+twins and the telemetry slab's ``device.telemetry.*`` (``obs/devtel.py``);
+the fleet's ``fleet.*``; ``faults.injected.<point>``.
 
 Also home to the TPE kernel-cache counters (:func:`kernel_cache_event` /
 :func:`kernel_cache_stats`): always on, whatever the switch, and each miss
