@@ -113,16 +113,16 @@ Phases, each fatal on failure:
                (c) per EI lowering, ``fmin_fleet(multivariate=True)`` over
                4 lanes lands each lane's solo run bit for bit, and a joint
                ``CohortScheduler`` serves 8 experiments with one launch,
-               each row its solo ``tpe.suggest``'s; (d) ``split_impl=
-               "sort"`` and ``fused_step=False`` land the default's 256
-               trials, ``comp_sampler="gumbel"`` captures, stays in
-               bounds and its 4 fleet lanes equal their solo runs; card ms
-               per replay of each, in turns; (e) ``startup="qmc"``: the
-               card's 20 startup rows equal the CPU's, device mode refuses
-               it; (f) ``suggest_quantile`` at ``overlap_depth=2`` runs K1
-               once per TPE step, and the host ms of the first step past
-               the 1,024 bucket against a steady one, with and without the
-               next bucket's kernel built ahead (``_prewarm_async``).
+               each row its solo ``tpe.suggest``'s; (d)
+               ``comp_sampler="gumbel"`` captures, stays in bounds and
+               its 4 fleet lanes equal their solo runs; card ms per
+               replay of it and the default, in turns; (e)
+               ``startup="qmc"``: the card's 20 startup rows equal the
+               CPU's, device mode refuses it; (f) ``suggest_quantile``
+               at ``overlap_depth=2`` runs K1 once per TPE step, and the
+               host ms of the first step past the 1,024 bucket against a
+               steady one, with and without the next bucket's kernel
+               built ahead (``_prewarm_async``).
 11. heads     the other suggest heads at the same width: (a) every
                registry name resolves, and ``fmin(algo="<name>")`` runs 16
                hosted trials after the 1,000-trial history for each unique
@@ -2484,12 +2484,9 @@ def phase_tpe_rest(dev, hosted):
               f"{COHORT} experiments with one launch of {name}, each row "
               f"equal to its solo tpe.suggest")
 
-    # (d) the lowerings: sort and unfused land the default's trials; the
-    # Gumbel sampler captures, stays in bounds, and its lanes equal their
-    # solo runs; card ms per replay of each, in turns.
-    variants = (("default", {}), ("sort", dict(split_impl="sort")),
-                ("unfused", dict(fused_step=False)),
-                ("gumbel", dict(comp_sampler="gumbel")))
+    # (d) the samplers: the Gumbel sampler captures, stays in bounds, and
+    # its lanes equal their solo runs; card ms per replay of each, in turns.
+    variants = (("default", {}), ("gumbel", dict(comp_sampler="gumbel")))
     lowered = {}
     for label, extra in variants:
         obj = make_objective_torch()
@@ -2500,12 +2497,6 @@ def phase_tpe_rest(dev, hosted):
                        eager_steps=0, fetch_syncs=1)
         check_captures(f"tpe_rest (d) {label}", "f32")
         lowered[label] = (t, segment_of(cs, obj, tpe._bucket(REST_RUN)))
-    ref = landed(lowered["default"][0], 0)
-    for label in ("sort", "unfused"):
-        diffs = column_diffs(landed(lowered[label][0], 0), ref)
-        if diffs:
-            fail(f"tpe_rest (d): {label} lands other trials than the "
-                 f"default: {diffs}")
     hg = lowered["gumbel"][0].history(cs)
     for row, act in zip(hg["vals"], hg["active"]):
         bad = [lab for lab in in_bounds(cs, row) if act[cs.by_label[lab].pid]]
@@ -2531,8 +2522,7 @@ def phase_tpe_rest(dev, hosted):
         _, ms = counted("f32", lambda: replay_ms(lowered[label][1], h_d,
                                                  rows_in))
         card[label].append(ms)
-    print(f"tpe_rest (d): split_impl='sort' and fused_step=False land the "
-          f"default's {REST_RUN} trials; comp_sampler='gumbel' captures, "
+    print(f"tpe_rest (d): comp_sampler='gumbel' captures, "
           f"proposes in bounds, and its {lanes} fleet lanes equal their "
           f"solo runs; card ms per replay after {rows_in} rows (in turns, "
           f"forth and back): " + ", ".join(

@@ -139,6 +139,7 @@ from .tpe import (
     _default_n_startup_jobs,
     _default_prior_weight,
     _insert_row,
+    _lowering,
     stack_noise,
     wait_prewarm,
 )
@@ -569,8 +570,8 @@ def _build_segment(cs, kern, eval_one, n_startup, gamma, prior_weight,
 def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
                  gamma, prior_weight, linear_forgetting, split, cat_prior,
                  ei_impl, ei_precision, ei_topm, n_lanes=1, telemetry=False,
-                 multivariate=False, comp_sampler="icdf", split_impl="topk",
-                 fused_step=True, mesh=None, strict=True):
+                 multivariate=False, comp_sampler="icdf", mesh=None,
+                 strict=True):
     """The cached segment for this objective, bucket, tuning (the
     lowerings included), lane count, telemetry switch and mesh, built (and
     captured) on a miss.  With a mesh the step's kernel is the sharded one
@@ -578,6 +579,8 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
     kernel when ``mesh["sp"]`` does not divide the candidates)."""
     from . import dispatch
 
+    lowering = _lowering(split, cat_prior, ei_impl, ei_precision, ei_topm,
+                         multivariate, comp_sampler)
     n_cap = _bucket(max_evals)
     dev = torch.device(device)
     # id(fn) is the only safe key for the objective: closures with the same
@@ -585,10 +588,8 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
     # reused while the entry lives.
     key = (id(fn), n_cap, str(dev), int(n_startup_jobs), float(gamma),
            float(prior_weight), int(linear_forgetting),
-           int(n_EI_candidates), split, cat_prior, ei_impl, ei_precision,
-           int(ei_topm), int(n_lanes), bool(telemetry), bool(multivariate),
-           comp_sampler, split_impl, bool(fused_step),
-           None if mesh is None else dispatch._mesh_key(mesh))
+           int(n_EI_candidates), int(n_lanes), bool(telemetry),
+           None if mesh is None else dispatch._mesh_key(mesh)) + lowering
     with _CACHE_LOCK:
         cache = cs.__dict__.setdefault("_device_runs", OrderedDict())
         hit = cache.get(key)
@@ -599,11 +600,9 @@ def _segment_for(fn, cs, max_evals, device, n_startup_jobs, n_EI_candidates,
         _bump(run_cache_misses=1)
         EVENTS.emit("compile", name="fmin_device_segment", n_cap=n_cap,
                     n_lanes=int(n_lanes), telemetry=bool(telemetry))
-        kern = dispatch.get_kernel(cs, n_cap, int(n_EI_candidates),
-                                   int(linear_forgetting), split, cat_prior,
-                                   dev, ei_impl, ei_precision, int(ei_topm),
-                                   multivariate, comp_sampler, split_impl,
-                                   fused_step, mesh=mesh, strict=strict)
+        kern = dispatch._kernel(cs, n_cap, int(n_EI_candidates),
+                                int(linear_forgetting), dev, lowering, mesh,
+                                strict)
         seg = _build_segment(cs, kern, _wrap_objective(fn, cs),
                              n_startup_jobs, gamma, prior_weight, n_lanes,
                              telemetry)
@@ -633,8 +632,7 @@ def fmin_device(fn, space, max_evals, seed=0,
                 split="sqrt", cat_prior="sqrt", ei_impl="vpu",
                 ei_precision="f32", ei_topm=0, mesh=None, init=None,
                 n_runs=1, patience=None, min_improvement=0.0, device=None,
-                multivariate=False, comp_sampler="icdf", split_impl="topk",
-                fused_step=True):
+                multivariate=False, comp_sampler="icdf"):
     """Run ``max_evals`` trials of TPE on the device; see the module doc.
 
     Returns ``(best, info)``: ``best`` is the ``{label: value}`` dict of the
@@ -663,8 +661,8 @@ def fmin_device(fn, space, max_evals, seed=0,
     is per run, and the replays stop once every run has stopped.  ``init``
     does not compose with ``n_runs > 1``.
 
-    ``multivariate``, ``comp_sampler``, ``split_impl`` and ``fused_step``
-    are ``tpe.suggest``'s.  ``device`` defaults to CUDA.
+    ``multivariate`` and ``comp_sampler`` are ``tpe.suggest``'s.
+    ``device`` defaults to CUDA.
 
     ``mesh`` (a ``dispatch`` mesh; every rank calls with the same
     arguments): one run shards its candidates over ``mesh["sp"]``, which
@@ -743,8 +741,7 @@ def fmin_device(fn, space, max_evals, seed=0,
                        linear_forgetting, split, cat_prior, ei_impl,
                        ei_precision, ei_topm, n_lanes=n_local,
                        telemetry=_devtel.enabled(), multivariate=multivariate,
-                       comp_sampler=comp_sampler, split_impl=split_impl,
-                       fused_step=fused_step,
+                       comp_sampler=comp_sampler,
                        mesh=mesh if n_runs == 1 else None)
     ok = np.isfinite(pl)
     first = r_dp * n_local
@@ -827,8 +824,7 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
                 linear_forgetting=_default_linear_forgetting,
                 split="sqrt", cat_prior="sqrt", ei_impl="vpu",
                 ei_precision="f32", ei_topm=0, device=None,
-                multivariate=False, comp_sampler="icdf", split_impl="topk",
-                fused_step=True, mesh=None):
+                multivariate=False, comp_sampler="icdf", mesh=None):
     """Run TPE on the device in segments of ``sync_stride`` trials, landing
     each segment's trials in ``trials`` (the engine of
     ``fmin(mode="device")``); returns ``trials``.
@@ -873,7 +869,6 @@ def fmin_trials(fn, space, max_evals, trials, rstate, sync_stride=None,
                        linear_forgetting, split, cat_prior, ei_impl,
                        ei_precision, ei_topm, telemetry=telemetry,
                        multivariate=multivariate, comp_sampler=comp_sampler,
-                       split_impl=split_impl, fused_step=fused_step,
                        mesh=mesh, strict=False)
     reg = _metrics.registry()
     exp_key = getattr(trials, "exp_key", None)

@@ -59,16 +59,12 @@ names, shape, ranks, device type; never ``id(mesh)``), and feed the same
 from __future__ import annotations
 
 import threading
-from time import perf_counter
 
 import numpy as np
 import torch
 
 from . import base, rand
 from . import tpe as _tpe
-from .obs import costs as _costs
-from .obs import trace as _trace
-from .obs.metrics import kernel_cache_event
 from .obs.metrics import registry as _metrics_registry
 from .space import CompiledSpace, make_generator, resolve_device
 
@@ -273,8 +269,7 @@ class ShardedTpeKernel(_tpe._TpeKernel):
     def __init__(self, cs: CompiledSpace, n_cap, n_cand, lf, mesh,
                  split="sqrt", cat_prior="sqrt", device="cuda",
                  ei_impl="vpu", ei_precision="f32", ei_topm=0,
-                 multivariate=False, comp_sampler="icdf", split_impl="topk",
-                 fused_step=True):
+                 multivariate=False, comp_sampler="icdf"):
         _check_axes(mesh)
         n_shards = axis_size(mesh, CAND_AXIS)
         if n_cand % n_shards:
@@ -283,7 +278,7 @@ class ShardedTpeKernel(_tpe._TpeKernel):
                 f"{n_shards}-way candidate mesh axis")
         super().__init__(cs, n_cap, n_cand, lf, split, cat_prior, device,
                          ei_impl, ei_precision, ei_topm, multivariate,
-                         comp_sampler, split_impl, fused_step)
+                         comp_sampler)
         self.n_shards = n_shards
         self.bind(mesh)
 
@@ -331,11 +326,8 @@ class ShardedTpeKernel(_tpe._TpeKernel):
         return res
 
     def _next_bucket(self):
-        return get_kernel(self.cs, self.n_cap * 2, self.n_cand, self.lf,
-                          self.split, self.cat_prior, self.device,
-                          self.ei_impl, self.ei_precision, self.ei_topm,
-                          self.multivariate, self.comp_sampler,
-                          self.split_impl, self.fused_step, mesh=self.mesh)
+        return _kernel(self.cs, self.n_cap * 2, self.n_cand, self.lf,
+                       self.device, self.lowering, self.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -347,8 +339,7 @@ def get_kernel(cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
                split: str = "sqrt", cat_prior: str = "sqrt", device="cuda",
                ei_impl: str = "vpu", ei_precision: str = "f32",
                ei_topm: int = 0, multivariate: bool = False,
-               comp_sampler: str = "icdf", split_impl: str = "topk",
-               fused_step: bool = True, mesh=None, strict: bool = False):
+               comp_sampler: str = "icdf", mesh=None, strict: bool = False):
     """The one kernel-acquisition point of every suggest path.
 
     ``mesh=None`` is exactly ``tpe.get_kernel``.  With a mesh, a
@@ -358,11 +349,17 @@ def get_kernel(cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
     divide raises ``ValueError`` when ``strict``; otherwise the local
     kernel serves and ``dispatch.fallback_indivisible`` counts it (an
     ambient mesh never turns a working configuration into an error)."""
-    args = (n_cap, n_cand, lf, split, cat_prior, device, ei_impl,
-            ei_precision, ei_topm, multivariate, comp_sampler, split_impl,
-            fused_step)
+    return _kernel(cs, n_cap, n_cand, lf, torch.device(device),
+                   _tpe._lowering(split, cat_prior, ei_impl, ei_precision,
+                                  ei_topm, multivariate, comp_sampler),
+                   mesh, strict)
+
+
+def _kernel(cs, n_cap, n_cand, lf, device, lowering, mesh=None,
+            strict=False):
+    """:func:`get_kernel` for a checked ``lowering`` (``tpe._lowering``)."""
     if mesh is None:
-        return _tpe.get_kernel(cs, *args)
+        return _tpe._kernel(cs, n_cap, n_cand, lf, device, lowering)
     _check_axes(mesh)
     n_shards = axis_size(mesh, CAND_AXIS)
     if n_cand % n_shards:
@@ -371,31 +368,15 @@ def get_kernel(cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
                 f"n_EI_candidates={n_cand} not divisible by the "
                 f"{n_shards}-way candidate mesh axis")
         _metrics_registry().counter("dispatch.fallback_indivisible").inc()
-        return _tpe.get_kernel(cs, *args)
-    dev = torch.device(device)
-    k = (n_cap, n_cand, lf, split, cat_prior, str(dev), ei_impl,
-         ei_precision, int(ei_topm), bool(multivariate), comp_sampler,
-         split_impl, bool(fused_step), ("mesh",) + _mesh_key(mesh))
-    with _tpe._KERNELS_LOCK:
-        cache = cs.__dict__.setdefault("_dispatch_kernels", {})
-        hit = k in cache
-        if not hit:
-            t0 = perf_counter()
-            with _trace.span("tpe.kernel_build"):
-                cache[k] = ShardedTpeKernel(
-                    cs, n_cap, n_cand, lf, mesh, split, cat_prior, dev,
-                    ei_impl, ei_precision, ei_topm, multivariate,
-                    comp_sampler, split_impl, fused_step)
-            build_s = perf_counter() - t0
-            _metrics_registry().counter("tpe.kernel_build_ms").inc(
-                build_s * 1e3)
-            cache[k].cost_key = k
-            _costs.record_compile("tpe_sharded", k, n_cap=n_cap,
-                                  P=cs.n_params, m=1, compile_s=build_s)
-        kern = cache[k]
-        if kern.mesh is not mesh:
-            kern.bind(mesh)
-    kernel_cache_event(k, hit)
+        return _tpe._kernel(cs, n_cap, n_cand, lf, device, lowering)
+    key = ((n_cap, n_cand, lf, str(device)) + lowering
+           + (("mesh",) + _mesh_key(mesh),))
+    kern = _tpe._cached_kernel(
+        "_dispatch_kernels", "tpe_sharded", cs, key,
+        lambda: ShardedTpeKernel(cs, n_cap, n_cand, lf, mesh, *lowering[:2],
+                                 device, *lowering[2:]))
+    if kern.mesh is not mesh:
+        kern.bind(mesh)
     return kern
 
 
@@ -413,8 +394,7 @@ def suggest_dispatch(new_ids, domain, trials, seed, mesh=None, strict=False,
                      split="sqrt", cat_prior="sqrt", ei_impl="vpu",
                      ei_precision="f32", ei_topm=0, resident=True,
                      multivariate=False, startup=None, comp_sampler="icdf",
-                     split_impl="topk", fused_step=True, verbose=True,
-                     noise=None):
+                     verbose=True, noise=None):
     """Sharded twin of :func:`tpe.suggest_dispatch`: the same startup,
     fantasies, bucket, prewarm, resident ring and handle, with the kernel
     from :func:`get_kernel` (``mesh`` resolved by :func:`active_mesh`).
@@ -428,19 +408,16 @@ def suggest_dispatch(new_ids, domain, trials, seed, mesh=None, strict=False,
             gamma=gamma, linear_forgetting=linear_forgetting, split=split,
             cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
             ei_topm=ei_topm, resident=resident, multivariate=multivariate,
-            startup=startup, comp_sampler=comp_sampler,
-            split_impl=split_impl, fused_step=fused_step, verbose=verbose)
-    _tpe._check_ei_args(ei_impl, ei_precision, ei_topm)
-    _tpe._check_lowerings(comp_sampler, split_impl, fused_step)
+            startup=startup, comp_sampler=comp_sampler, verbose=verbose)
+    lowering = _tpe._lowering(split, cat_prior, ei_impl, ei_precision,
+                              ei_topm, multivariate, comp_sampler)
     dev = resolve_device(domain.cs.device)
+    n_cand, lf = int(n_EI_candidates), int(linear_forgetting)
     reg = _metrics_registry()
 
     def acquire(n_cap):
-        kern = get_kernel(domain.cs, n_cap, int(n_EI_candidates),
-                          int(linear_forgetting), split, cat_prior, dev,
-                          ei_impl, ei_precision, ei_topm, multivariate,
-                          comp_sampler, split_impl, fused_step, mesh=mesh,
-                          strict=strict)
+        kern = _kernel(domain.cs, n_cap, n_cand, lf, dev, lowering, mesh,
+                       strict)
         sharded = isinstance(kern, ShardedTpeKernel)
         reg.counter("dispatch.sharded" if sharded else "dispatch.local").inc()
         return kern
@@ -480,8 +457,7 @@ def multi_start_suggest(new_ids, domain, trials, seed, mesh=None,
                         split="sqrt", cat_prior="sqrt", ei_impl="vpu",
                         ei_precision="f32", ei_topm=0, resident=True,
                         multivariate=False, startup=None,
-                        comp_sampler="icdf", split_impl="topk",
-                        fused_step=True, noise=None):
+                        comp_sampler="icdf", noise=None):
     """``algo=`` callable proposing ``len(new_ids)`` configurations from
     one step over K lanes (``tpe._TpeKernel._suggest_lanes``, one EI launch
     for all starts): start ``k`` reads the same history with its own
@@ -520,7 +496,7 @@ def multi_start_suggest(new_ids, domain, trials, seed, mesh=None,
     kern = _tpe.get_kernel(cs, _tpe._bucket(n_rows), int(n_EI_candidates),
                            int(linear_forgetting), split, cat_prior, dev,
                            ei_impl, ei_precision, ei_topm, multivariate,
-                           comp_sampler, split_impl, fused_step)
+                           comp_sampler)
     kern.check_lanes(share)
     if resident:
         from . import history

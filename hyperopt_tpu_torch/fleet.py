@@ -253,10 +253,10 @@ class CohortScheduler:
                  linear_forgetting=tpe._default_linear_forgetting,
                  split="sqrt", cat_prior="sqrt", ei_impl="vpu",
                  ei_precision="f32", ei_topm=0, resident=True,
-                 multivariate=False, startup=None, comp_sampler="icdf",
-                 split_impl="topk", fused_step=True):
-        tpe._check_ei_args(ei_impl, ei_precision, ei_topm)
-        tpe._check_lowerings(comp_sampler, split_impl, fused_step)
+                 multivariate=False, startup=None, comp_sampler="icdf"):
+        self._lowering = tpe._lowering(split, cat_prior, ei_impl,
+                                       ei_precision, ei_topm, multivariate,
+                                       comp_sampler)
         self._kwargs = dict(
             prior_weight=float(prior_weight),
             n_startup_jobs=int(n_startup_jobs),
@@ -265,8 +265,7 @@ class CohortScheduler:
             cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
             ei_topm=int(ei_topm), resident=bool(resident),
             multivariate=bool(multivariate), startup=startup,
-            comp_sampler=comp_sampler, split_impl=split_impl,
-            fused_step=bool(fused_step))
+            comp_sampler=comp_sampler)
         self._lock = threading.Lock()
         self._states: dict = {}      # cohort key -> _CohortState
         self._rep_cs: dict = {}      # space signature -> representative
@@ -385,13 +384,9 @@ class CohortScheduler:
         rep = self._rep(sig, members[0].cs)
         # With a mesh active the lanes run against the sharded kernel;
         # non-strict: an indivisible candidate count takes the local one.
-        kern = _dispatch.get_kernel(rep, n_cap, kw["n_EI_candidates"],
-                                    kw["linear_forgetting"], kw["split"],
-                                    kw["cat_prior"], dev, kw["ei_impl"],
-                                    kw["ei_precision"], kw["ei_topm"],
-                                    kw["multivariate"], kw["comp_sampler"],
-                                    kw["split_impl"], kw["fused_step"],
-                                    mesh=_dispatch.active_mesh())
+        kern = _dispatch._kernel(rep, n_cap, kw["n_EI_candidates"],
+                                 kw["linear_forgetting"], dev,
+                                 self._lowering, _dispatch.active_mesh())
         assigned = self._assign_lanes(state, members)
         b = len(state.lanes)
         kern.check_lanes(b)
@@ -514,7 +509,7 @@ def fmin_fleet(fn, space, n_lanes, max_evals, seed=0, sync_stride=None,
                linear_forgetting=tpe._default_linear_forgetting,
                split="sqrt", multivariate=False, cat_prior="sqrt",
                ei_impl="vpu", ei_precision="f32", ei_topm=0, device=None,
-               comp_sampler="icdf", split_impl="topk", fused_step=True):
+               comp_sampler="icdf"):
     """Run ``n_lanes`` independent device-mode TPE runs in lockstep, from
     empty histories, on one captured step (see the module doc).
 
@@ -570,8 +565,7 @@ def fmin_fleet(fn, space, n_lanes, max_evals, seed=0, sync_stride=None,
                               linear_forgetting, split, cat_prior, ei_impl,
                               ei_precision, ei_topm, n_lanes=n_local,
                               telemetry=telemetry, multivariate=multivariate,
-                              comp_sampler=comp_sampler,
-                              split_impl=split_impl, fused_step=fused_step)
+                              comp_sampler=comp_sampler)
     # Alive for this call: the weak set drops it when the call returns.
     stack = _LaneStackHandle(seg)
     _LANE_STACKS.add(stack)

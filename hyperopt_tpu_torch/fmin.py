@@ -706,7 +706,7 @@ def _result(trials, return_argmin):
 _DEVICE_ALGO_KEYS = frozenset((
     "gamma", "prior_weight", "n_startup_jobs", "n_EI_candidates",
     "linear_forgetting", "split", "multivariate", "cat_prior", "ei_impl",
-    "ei_precision", "ei_topm", "comp_sampler", "split_impl", "fused_step"))
+    "ei_precision", "ei_topm", "comp_sampler"))
 
 
 def _device_algo_kwargs(algo):

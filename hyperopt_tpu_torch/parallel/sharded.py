@@ -57,7 +57,7 @@ def sharded_suggest(new_ids, domain, trials, seed, mesh=None,
     group), strict about divisibility.  Defaults to 4,096 candidates;
     takes ``tpe.suggest``'s keywords (``lowerings``: ``ei_impl``,
     ``ei_precision``, ``ei_topm``, ``resident``, ``comp_sampler``,
-    ``split_impl``, ``fused_step``, ``noise``)."""
+    ``noise``)."""
     from .. import dispatch
 
     cs = domain.cs

@@ -36,13 +36,13 @@ package's ``_suggest_one_joint_tel``): the ``n_cand`` draws of every column
 form ``n_cand`` vectors, the EI sheets of the columns active in a vector
 add up (in a fixed order, ``ops/fixed_order.py``) and the best vector wins.
 
-The JAX package's three environment-switched lowerings are arguments here:
-``comp_sampler`` (``"icdf"``: one uniform per draw and a CDF compare;
-``"gumbel"``: the Gumbel-argmax trick over ``[n_cand, K]`` uniforms, for
-the mixture component and the categorical draw), ``split_impl``
-(``"topk"``: the ``lf`` smallest losses; ``"sort"``: rank by double
-argsort, the same masks) and ``fused_step`` (True: below and above fits in
-one batched sweep; False: two sweeps, the same bits).
+The JAX package's environment-switched component sampler is an argument
+here: ``comp_sampler`` (``"icdf"``: one uniform per draw and a CDF
+compare; ``"gumbel"``: the Gumbel-argmax trick over ``[n_cand, K]``
+uniforms, for the mixture component and the categorical draw).  The
+step's lowering (split, categorical prior, EI kernel, joint or factorized
+winner, sampler) is checked and turned into the tuple that keys a kernel
+in one place, :func:`_lowering`.
 
 Randomness: each step's uniforms come from a ``torch.Generator`` seeded
 from the suggest seed (one per batch, consumed in step order), or are
@@ -93,7 +93,7 @@ from .ops.ei_scores import build_seconds as ei_build_seconds
 from .ops.fixed_order import prefix_sum, tree_sum
 from .ops.gmm import (gmm_log_qmass, gmm_sample, gumbel_pick, icdf_pick,
                       onehot_lookup, truncate_mixture)
-from .ops.parzen import fit_parzen, forgetting_weights
+from .ops.parzen import forgetting_weights
 from .ops.step_ei import ei_argmax_stats, fused_parzen_fit
 from .space import (
     _MAX_RANDINT_RANGE,
@@ -133,7 +133,6 @@ _default_linear_forgetting = 25
 _EI_IMPLS = ("vpu", "mxu")
 _EI_PRECISIONS = ("f32", "bf16")
 _COMP_SAMPLERS = ("icdf", "gumbel")
-_SPLIT_IMPLS = ("topk", "sort")
 
 _TINY = 1e-12
 # Bucket bounds in MILLISECONDS of the suggest.*_ms histograms: 50 us to
@@ -251,7 +250,13 @@ def _obs_ms(reg, name, ms):
     reg.histogram(name, buckets=_MS_BUCKETS).observe(ms)
 
 
-def _check_ei_args(ei_impl, ei_precision, ei_topm):
+def _lowering(split, cat_prior, ei_impl, ei_precision, ei_topm,
+              multivariate, comp_sampler):
+    """The TPE step's lowering, checked: ``(split, cat_prior, ei_impl,
+    ei_precision, ei_topm, multivariate, comp_sampler)`` with ``ei_topm``
+    an int and ``multivariate`` a bool, the tuple that keys a kernel
+    (:func:`get_kernel`, ``dispatch.get_kernel``, ``device._segment_for``).
+    Raises ``ValueError`` naming the first bad argument."""
     if ei_impl not in _EI_IMPLS:
         raise ValueError(f"ei_impl must be one of {_EI_IMPLS}, got "
                          f"{ei_impl!r}")
@@ -261,17 +266,16 @@ def _check_ei_args(ei_impl, ei_precision, ei_topm):
     if isinstance(ei_topm, bool) or not isinstance(ei_topm, (int, np.integer)) \
             or ei_topm < 0:
         raise ValueError(f"ei_topm must be an int >= 0, got {ei_topm!r}")
-
-
-def _check_lowerings(comp_sampler, split_impl, fused_step):
     if comp_sampler not in _COMP_SAMPLERS:
         raise ValueError(f"comp_sampler must be one of {_COMP_SAMPLERS}, "
                          f"got {comp_sampler!r}")
-    if split_impl not in _SPLIT_IMPLS:
-        raise ValueError(f"split_impl must be one of {_SPLIT_IMPLS}, got "
-                         f"{split_impl!r}")
-    if not isinstance(fused_step, (bool, np.bool_)):
-        raise ValueError(f"fused_step must be a bool, got {fused_step!r}")
+    if split not in ("sqrt", "quantile"):
+        raise ValueError(f"split must be 'sqrt' or 'quantile', got {split!r}")
+    if cat_prior not in ("sqrt", "const"):
+        raise ValueError(
+            f"cat_prior must be 'sqrt' or 'const', got {cat_prior!r}")
+    return (split, cat_prior, ei_impl, ei_precision, int(ei_topm),
+            bool(multivariate), comp_sampler)
 
 
 def _insert_row(hv, ha, hl, hok, idx, row, act, loss, ok=True):
@@ -297,42 +301,28 @@ def _insert_row(hv, ha, hl, hok, idx, row, act, loss, ok=True):
 
 class _TpeKernel:
     """The TPE suggest step for a fixed (space, history bucket, n_cand, LF,
-    split, categorical prior, device, EI lowering, joint or factorized
-    winner, sampler/split/fit lowering).
+    device, lowering).
 
+    The lowering is :func:`_lowering`'s: ``split`` and ``cat_prior``;
     ``ei_impl``/``ei_precision`` pick the EI kernel (``ops/ei_scores.py``:
     ``"vpu"``/``"f32"`` K1, ``"vpu"``/``"bf16"`` K2, ``"mxu"`` K3, which
     ignores the precision); ``ei_topm > 0`` scores against the top
-    ``ei_topm`` above components by weight only.  ``multivariate``,
-    ``comp_sampler``, ``split_impl`` and ``fused_step``: see the module
-    doc."""
+    ``ei_topm`` above components by weight only.  ``multivariate`` and
+    ``comp_sampler``: see the module doc."""
 
     def __init__(self, cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
                  split: str = "sqrt", cat_prior: str = "sqrt", device="cuda",
                  ei_impl: str = "vpu", ei_precision: str = "f32",
                  ei_topm: int = 0, multivariate: bool = False,
-                 comp_sampler: str = "icdf", split_impl: str = "topk",
-                 fused_step: bool = True):
-        _check_ei_args(ei_impl, ei_precision, ei_topm)
-        _check_lowerings(comp_sampler, split_impl, fused_step)
-        self.ei_impl = ei_impl
-        self.ei_precision = ei_precision
-        self.ei_topm = int(ei_topm)
-        self.multivariate = bool(multivariate)
-        self.comp_sampler = comp_sampler
-        self.split_impl = split_impl
-        self.fused_step = bool(fused_step)
+                 comp_sampler: str = "icdf"):
+        self.lowering = _lowering(split, cat_prior, ei_impl, ei_precision,
+                                  ei_topm, multivariate, comp_sampler)
+        (self.split, self.cat_prior, self.ei_impl, self.ei_precision,
+         self.ei_topm, self.multivariate, self.comp_sampler) = self.lowering
         self.cs = cs
         self.n_cap = n_cap
         self.n_cand = n_cand
         self.lf = lf
-        if split not in ("sqrt", "quantile"):
-            raise ValueError(f"split must be 'sqrt' or 'quantile', got {split!r}")
-        self.split = split
-        if cat_prior not in ("sqrt", "const"):
-            raise ValueError(
-                f"cat_prior must be 'sqrt' or 'const', got {cat_prior!r}")
-        self.cat_prior = cat_prior
         self.device = torch.device(device)
         # The cohort tiers (lanes, steps) this kernel has served, for the
         # kernel-cache and cost rows of suggest_fleet_seeded.
@@ -422,13 +412,6 @@ class _TpeKernel:
                                 torch.clamp_max(n_ok, self.lf))
         loss = torch.where(torch.isnan(loss),
                            torch.full_like(loss, math.inf), loss)
-        # (A stand-in without split_impl, as in tests, splits by top-k.)
-        if getattr(self, "split_impl", "topk") == "sort":
-            # Rank by (loss, index): the ok trials hold ranks [0, n_ok).
-            rank = torch.argsort(torch.argsort(loss, dim=-1, stable=True),
-                                 dim=-1)
-            below = ok & (rank < n_below[..., None])
-            return below, ok & ~below
         # Only the k = min(lf, N) smallest losses can enter the below set.
         # A stable sort keeps the lower index first on ties, the order
         # lax.top_k gives in the JAX step.
@@ -466,28 +449,9 @@ class _TpeKernel:
             m, w, n_set = self._set_weights(set_mask, act)
             return torch.where(m, z, torch.full_like(z, math.inf)), w, n_set
 
-        if self.fused_step:
-            return fused_parzen_fit(*set_obs(below), *set_obs(above),
-                                    gt.prior_mu, gt.prior_sigma,
-                                    prior_weight, cap_b, cap_a)
-
-        def models(set_mask, cap):
-            # One fit_parzen sweep per set (the JAX package's unfused
-            # lowering), lanes folded into its rows.
-            x, w, n_set = set_obs(set_mask)
-            lead, (n, c) = x.shape[:-2], x.shape[-2:]
-            lanes = x.numel() // max(1, n * c)
-            pw = prior_weight
-            if isinstance(pw, torch.Tensor):
-                pw = pw.reshape(-1).repeat_interleave(c)
-            out = fit_parzen(x.transpose(-1, -2).reshape(-1, n),
-                             w.transpose(-1, -2).reshape(-1, n),
-                             n_set.reshape(-1), gt.prior_mu.repeat(lanes),
-                             gt.prior_sigma.repeat(lanes), pw, cap)
-            wt, mu, sg = (t.reshape(*lead, c, cap) for t in out)
-            return torch.log(wt), mu, sg
-
-        return (*models(below, cap_b), *models(above, cap_a))
+        return fused_parzen_fit(*set_obs(below), *set_obs(above),
+                                gt.prior_mu, gt.prior_sigma, prior_weight,
+                                cap_b, cap_a)
 
     def _cont_draw(self, gt, lwb, mub, sgb, uc, u):
         """Candidate draws ``zc [..., C, n_cand]`` (fit space) from the
@@ -619,11 +583,8 @@ class _TpeKernel:
     def _next_bucket(self):
         """This kernel's twin at the next history bucket (``2·n_cap``,
         the same arguments): what :func:`_prewarm_async` builds."""
-        return get_kernel(self.cs, self.n_cap * 2, self.n_cand, self.lf,
-                          self.split, self.cat_prior, self.device,
-                          self.ei_impl, self.ei_precision, self.ei_topm,
-                          self.multivariate, self.comp_sampler,
-                          self.split_impl, self.fused_step)
+        return _kernel(self.cs, self.n_cap * 2, self.n_cand, self.lf,
+                       self.device, self.lowering)
 
     # -- the step ------------------------------------------------------------
 
@@ -934,34 +895,45 @@ def get_kernel(cs: CompiledSpace, n_cap: int, n_cand: int, lf: int,
                split: str = "sqrt", cat_prior: str = "sqrt",
                device="cuda", ei_impl: str = "vpu", ei_precision: str = "f32",
                ei_topm: int = 0, multivariate: bool = False,
-               comp_sampler: str = "icdf", split_impl: str = "topk",
-               fused_step: bool = True) -> _TpeKernel:
-    """The cached :class:`_TpeKernel` for these shapes and arguments.  Each
-    lookup feeds ``kernel_cache_event``; a miss is a ``tpe.kernel_build``
-    span, adds its build time to the counter ``tpe.kernel_build_ms`` and
-    records it in the cost ledger (when armed)."""
-    dev = torch.device(device)
-    k = (n_cap, n_cand, lf, split, cat_prior, str(dev), ei_impl,
-         ei_precision, int(ei_topm), bool(multivariate), comp_sampler,
-         split_impl, bool(fused_step))
+               comp_sampler: str = "icdf") -> _TpeKernel:
+    """The cached :class:`_TpeKernel` for these shapes and arguments."""
+    return _kernel(cs, n_cap, n_cand, lf, torch.device(device),
+                   _lowering(split, cat_prior, ei_impl, ei_precision, ei_topm,
+                             multivariate, comp_sampler))
+
+
+def _kernel(cs, n_cap, n_cand, lf, device, lowering):
+    """:func:`get_kernel` for a checked ``lowering`` (:func:`_lowering`):
+    the suggest paths check their arguments once a call and look a kernel
+    up once a bucket."""
+    return _cached_kernel(
+        "_tpe_kernels", "tpe", cs, (n_cap, n_cand, lf, str(device)) + lowering,
+        lambda: _TpeKernel(cs, n_cap, n_cand, lf, *lowering[:2], device,
+                           *lowering[2:]))
+
+
+def _cached_kernel(cache_name, kind, cs, key, build):
+    """The kernel under ``key`` in the space's cache ``cs.<cache_name>``,
+    made by ``build()`` on a miss (:func:`get_kernel`, kind ``"tpe"``;
+    ``dispatch.get_kernel``, kind ``"tpe_sharded"``).  Each lookup feeds
+    ``kernel_cache_event``; a miss is a ``tpe.kernel_build`` span, adds its
+    build time to the counter ``tpe.kernel_build_ms`` and records it in the
+    cost ledger (when armed) under ``kind``."""
     with _KERNELS_LOCK:
-        cache = cs.__dict__.setdefault("_tpe_kernels", {})
-        hit = k in cache
+        cache = cs.__dict__.setdefault(cache_name, {})
+        hit = key in cache
         if not hit:
             t0 = perf_counter()
             with _trace.span("tpe.kernel_build"):
-                cache[k] = _TpeKernel(cs, n_cap, n_cand, lf, split,
-                                      cat_prior, dev, ei_impl, ei_precision,
-                                      ei_topm, multivariate, comp_sampler,
-                                      split_impl, fused_step)
+                cache[key] = build()
             build_s = perf_counter() - t0
             _metrics_registry().counter("tpe.kernel_build_ms").inc(
                 build_s * 1e3)
-            cache[k].cost_key = k
-            _costs.record_compile("tpe", k, n_cap=n_cap, P=cs.n_params, m=1,
-                                  compile_s=build_s)
-        kern = cache[k]
-    kernel_cache_event(k, hit)
+            cache[key].cost_key = key
+            _costs.record_compile(kind, key, n_cap=key[0], P=cs.n_params,
+                                  m=1, compile_s=build_s)
+        kern = cache[key]
+    kernel_cache_event(key, hit)
     return kern
 
 
@@ -1248,7 +1220,7 @@ def suggest(new_ids, domain, trials, seed,
             split="sqrt", cat_prior="sqrt", ei_impl="vpu",
             ei_precision="f32", ei_topm=0, resident=True,
             multivariate=False, startup=None, comp_sampler="icdf",
-            split_impl="topk", fused_step=True, verbose=True):
+            verbose=True):
     """TPE suggest: trial docs for ``new_ids``.  Bind hyperparameters with
     ``functools.partial(tpe.suggest, n_EI_candidates=...)``; the keywords
     are those of :func:`suggest_dispatch`.
@@ -1270,8 +1242,7 @@ def suggest(new_ids, domain, trials, seed,
             gamma=gamma, linear_forgetting=linear_forgetting, split=split,
             cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
             ei_topm=ei_topm, resident=resident, multivariate=multivariate,
-            startup=startup, comp_sampler=comp_sampler,
-            split_impl=split_impl, fused_step=fused_step, verbose=verbose))
+            startup=startup, comp_sampler=comp_sampler, verbose=verbose))
 
 
 def suggest_batch(new_ids, domain, trials, seed,
@@ -1283,7 +1254,7 @@ def suggest_batch(new_ids, domain, trials, seed,
                   split="sqrt", cat_prior="sqrt", ei_impl="vpu",
                   ei_precision="f32", ei_topm=0, resident=True,
                   multivariate=False, startup=None, comp_sampler="icdf",
-                  split_impl="topk", fused_step=True, verbose=True):
+                  verbose=True):
     """Raw ``(vals[n, P], active[n, P])`` host arrays, without docs."""
     return _force_rows(suggest_dispatch(
         new_ids, domain, trials, seed, prior_weight=prior_weight,
@@ -1291,8 +1262,7 @@ def suggest_batch(new_ids, domain, trials, seed,
         gamma=gamma, linear_forgetting=linear_forgetting, split=split,
         cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
         ei_topm=ei_topm, resident=resident, multivariate=multivariate,
-        startup=startup, comp_sampler=comp_sampler, split_impl=split_impl,
-        fused_step=fused_step, verbose=verbose))
+        startup=startup, comp_sampler=comp_sampler, verbose=verbose))
 
 
 def suggest_dispatch(new_ids, domain, trials, seed,
@@ -1304,16 +1274,17 @@ def suggest_dispatch(new_ids, domain, trials, seed,
                      split="sqrt", cat_prior="sqrt", ei_impl="vpu",
                      ei_precision="f32", ei_topm=0, resident=True,
                      multivariate=False, startup=None, comp_sampler="icdf",
-                     split_impl="topk", fused_step=True, verbose=True):
+                     verbose=True):
     """Start the suggest computation on the space's device; returns a
     handle for :func:`suggest_materialize`.  The history is read now.
 
     ``ei_impl`` (``"vpu"``/``"mxu"``), ``ei_precision`` (``"f32"``/
     ``"bf16"``) and ``ei_topm`` pick the EI lowering (:class:`_TpeKernel`);
-    ``multivariate=True`` picks the joint winner, ``comp_sampler``,
-    ``split_impl`` and ``fused_step`` the lowerings of the JAX package's
-    environment switches (module doc).  ``startup`` picks the sampler of
-    the first ``n_startup_jobs`` trials (:func:`_startup_batch`).
+    ``multivariate=True`` picks the joint winner, ``comp_sampler`` the
+    lowering of the JAX package's environment switch (module doc); a bad
+    lowering raises ``ValueError`` before anything runs
+    (:func:`_lowering`).  ``startup`` picks the sampler of the first
+    ``n_startup_jobs`` trials (:func:`_startup_batch`).
     ``resident=False`` pads the history on the host and uploads it whole
     instead of feeding from the resident ring (the same tensors either
     way).  ``n > 1`` new ids past startup run ``m = _batch_size_for(n)``
@@ -1341,17 +1312,14 @@ def suggest_dispatch(new_ids, domain, trials, seed,
             linear_forgetting=linear_forgetting, split=split,
             cat_prior=cat_prior, ei_impl=ei_impl, ei_precision=ei_precision,
             ei_topm=ei_topm, resident=resident, multivariate=multivariate,
-            startup=startup, comp_sampler=comp_sampler,
-            split_impl=split_impl, fused_step=fused_step, verbose=verbose)
-    _check_ei_args(ei_impl, ei_precision, ei_topm)
-    _check_lowerings(comp_sampler, split_impl, fused_step)
+            startup=startup, comp_sampler=comp_sampler, verbose=verbose)
+    lowering = _lowering(split, cat_prior, ei_impl, ei_precision, ei_topm,
+                         multivariate, comp_sampler)
     dev = resolve_device(domain.cs.device)
+    n_cand, lf = int(n_EI_candidates), int(linear_forgetting)
 
     def acquire(n_cap):
-        return get_kernel(domain.cs, n_cap, int(n_EI_candidates),
-                          int(linear_forgetting), split, cat_prior, dev,
-                          ei_impl, ei_precision, ei_topm, multivariate,
-                          comp_sampler, split_impl, fused_step)
+        return _kernel(domain.cs, n_cap, n_cand, lf, dev, lowering)
 
     return _dispatch_with(acquire, new_ids, domain, trials, seed,
                           prior_weight, n_startup_jobs, gamma, resident,

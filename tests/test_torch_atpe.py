@@ -224,9 +224,8 @@ def test_prewarm_builds_each_arms_kernel():
     keys = set(dt.cs._tpe_kernels)
     for cfg in arms:
         k = (tpe._bucket(len(tt)), cfg["n_EI_candidates"],
-             cfg.get("linear_forgetting", 25), cfg["split"], "sqrt", CPU,
-             "vpu", "f32", 0, cfg.get("multivariate", False), "icdf",
-             "topk", True)
+             cfg.get("linear_forgetting", 25), CPU, cfg["split"], "sqrt",
+             "vpu", "f32", 0, cfg.get("multivariate", False), "icdf")
         assert k in keys, cfg
 
 

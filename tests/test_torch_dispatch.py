@@ -694,6 +694,41 @@ class TestCompileDiscipline:
         assert {32, 64} <= caps
 
 
+@pytest.mark.parametrize("sharded", [False, True], ids=["tpe", "tpe_sharded"])
+def test_both_kernel_caches_keep_the_same_books(mesh, sharded):
+    """Local and sharded kernels: one build per key, under
+    ``(n_cap, n_cand, lf, device) + tpe._lowering(...)`` (plus the mesh),
+    timed into ``tpe.kernel_build_ms`` and recorded in the cost ledger
+    under its kind; every lookup feeds ``kernel_cache_stats``."""
+    from hyperopt_tpu_torch.obs import costs
+
+    dom, _ = _hist_trials()
+    for cache in ("_tpe_kernels", "_dispatch_kernels"):
+        dom.cs.__dict__.pop(cache, None)
+    m = mesh if sharded else None
+    lowering = tpe._lowering("sqrt", "sqrt", "vpu", "f32", 0, False, "icdf")
+    key = (64, 24, 25, CPU) + lowering
+    if sharded:
+        key += (("mesh",) + dispatch._mesh_key(mesh),)
+    built0 = _counter("tpe.kernel_build_ms")
+    was_armed = costs.armed()
+    costs.arm()
+    try:
+        kerns = [dispatch.get_kernel(dom.cs, 64, 24, 25, device=CPU, mesh=m)
+                 for _ in range(2)]
+        report = costs.ledger_report()
+    finally:
+        if not was_armed:
+            costs.disarm()
+    assert kerns[0] is kerns[1] and kerns[0].cost_key == key
+    assert isinstance(kerns[0], dispatch.ShardedTpeKernel) == sharded
+    assert _counter("tpe.kernel_build_ms") > built0
+    rows = [e for e in report["entries"] if e["key"] == repr(key)]
+    assert len(rows) == 1 and rows[0]["n_cap"] == 64
+    assert rows[0]["kernel"] == ("tpe_sharded" if sharded else "tpe")
+    assert rows[0]["requests"] >= 2 and rows[0]["misses"] >= 1
+
+
 class TestVolatileCache:
     def test_dispatch_kernels_dropped_from_pickles(self, mesh):
         import pickle

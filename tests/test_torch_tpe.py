@@ -1,7 +1,8 @@
 """The TPE step and the hosted loop of the PyTorch port against
 hyperopt_tpu.
 
-* ``_split`` gives the masks of the JAX top-k split on tied and NaN losses.
+* ``_split``: ``tests/test_torch_tpe_lowerings.py``, against both of JAX's
+  split lowerings.
 * The whole step, handed the uniforms the JAX step draws from its key
   schedule, proposes the JAX step's row.  The JAX step runs its Pallas EI
   kernel in interpret mode (``HYPEROPT_TPU_PALLAS=interpret``), as
@@ -15,7 +16,6 @@ hyperopt_tpu.
 import importlib.util
 from functools import partial
 from pathlib import Path
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -67,29 +67,6 @@ def wide_q(pkg):
     return {"wq": hp.quniform("wq", 0.0, 1e5, 1.0),
             "nq": hp.qnormal("nq", 0.0, 20.0, 1.0),
             "lq": hp.qlognormal("lq", 1.0, 1.0, 0.5)}
-
-
-@pytest.mark.parametrize("split", ["sqrt", "quantile"])
-@pytest.mark.parametrize("seed", range(3))
-def test_split_matches_jax_topk(split, seed):
-    rng = np.random.default_rng(seed)
-    n_cap = 64
-    n_ok = int(rng.integers(1, n_cap))
-    loss = np.full(n_cap, np.inf, np.float32)
-    loss[:n_ok] = rng.integers(0, 6, n_ok).astype(np.float32)   # ties
-    loss[rng.integers(0, n_ok, 3)] = np.nan
-    ok = np.zeros(n_cap, bool)
-    ok[:n_ok] = True
-    for gamma in (0.15, 0.25, 0.9):
-        for lf in (3, 25, 100):
-            kj = SimpleNamespace(lf=lf, split=split, split_impl="topk")
-            kt = SimpleNamespace(lf=lf, split=split)
-            bj, aj = tpe_j._TpeKernel._split(kj, jnp.asarray(loss),
-                                             jnp.asarray(ok), gamma)
-            bt, at = tpe_t._TpeKernel._split(kt, torch.as_tensor(loss),
-                                             torch.as_tensor(ok), gamma)
-            np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
-            np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
 
 
 def _history(csj, n, seed):

@@ -1,7 +1,7 @@
-"""The sampler, split and fit lowerings of the port's TPE step
-(``comp_sampler``, ``split_impl``, ``fused_step``: arguments here, the JAX
-package's ``HYPEROPT_TPU_COMP_SAMPLER``, ``HYPEROPT_TPU_SPLIT_IMPL`` and
-``HYPEROPT_TPU_FUSED_STEP`` there) against hyperopt_tpu.
+"""The port's TPE step against the JAX package's sampler, split and fit
+lowerings (``HYPEROPT_TPU_COMP_SAMPLER``, ``HYPEROPT_TPU_SPLIT_IMPL`` and
+``HYPEROPT_TPU_FUSED_STEP`` there; the port takes ``comp_sampler`` as an
+argument and has one split and one fit).
 
 * ``comp_sampler="gumbel"``: the step, handed the uniforms JAX's Gumbel
   draws start from (``[n_cand, K]`` per column, ``[D, n_cand, kmax]`` for
@@ -9,13 +9,15 @@ package's ``HYPEROPT_TPU_COMP_SAMPLER``, ``HYPEROPT_TPU_SPLIT_IMPL`` and
   rest to rtol 1e-5, as the icdf step); the candidate frequencies of the
   two samplers agree (two-sample χ², p > 0.01, as JAX's
   ``TestCatIcdfSampler``).
-* ``split_impl="sort"`` gives the masks of ``"topk"`` and of JAX's sort
-  lowering (JAX's ``TestSplitImpl`` cases; equality).
-* ``fused_step=False`` equals ``True`` bit for bit, and proposes JAX's
-  unfused step's row (same tolerance as the step).
-* Device mode and the fleet on the CPU take every lowering: lanes equal
-  solo runs, and ``sort``/unfused runs land the default's trials
-  (equality).
+* The port's split gives the masks of JAX's ``topk`` and ``sort``
+  lowerings (JAX's ``TestSplitImpl`` cases; equality), over lanes too.
+* The port's fit (below and above in one batched sweep) proposes JAX's
+  unfused step's row (same tolerance as the step), and its lane-folded
+  fit equals the solo fit bit for bit.
+* Every entry point checks the lowering before it builds anything, in
+  startup too (:func:`tpe._lowering`).
+* Device mode and the fleet on the CPU take the Gumbel sampler: lanes
+  equal solo runs (equality).
 """
 
 from functools import partial
@@ -32,7 +34,7 @@ import hyperopt_tpu as hj
 import hyperopt_tpu_torch as ht
 from hyperopt_tpu import tpe as tpe_j
 from hyperopt_tpu.space import compile_space as compile_j
-from hyperopt_tpu_torch import fleet, tpe
+from hyperopt_tpu_torch import dispatch, fleet, tpe
 from hyperopt_tpu_torch.ops.gmm import gumbel_pick
 from hyperopt_tpu_torch.space import compile_space as compile_t
 from test_torch_tpe import _history, _jax_step_uniforms, flagship
@@ -141,60 +143,55 @@ def test_icdf_matches_gumbel_frequencies():
     assert p > 0.01, (tab, p)
 
 
-def _split_both(loss, ok, gamma, lf, split):
-    out = []
-    for impl in ("sort", "topk"):
-        k = SimpleNamespace(lf=lf, split=split, split_impl=impl)
-        below, above = tpe._TpeKernel._split(
-            k, torch.as_tensor(loss, dtype=torch.float32),
-            torch.as_tensor(ok), gamma)
-        out.append((below.numpy(), above.numpy()))
-    kj = SimpleNamespace(lf=lf, split=split, split_impl="sort")
+def _splits(loss, ok, gamma, lf, split, impl):
+    """The port's ``(below, above)`` and JAX's under ``split_impl=impl``."""
+    k = SimpleNamespace(lf=lf, split=split)
+    bt, at = tpe._TpeKernel._split(
+        k, torch.as_tensor(loss, dtype=torch.float32), torch.as_tensor(ok),
+        gamma)
+    kj = SimpleNamespace(lf=lf, split=split, split_impl=impl)
     bj, aj = tpe_j._TpeKernel._split(kj, jnp.asarray(loss, jnp.float32),
                                      jnp.asarray(ok), gamma)
-    out.append((np.asarray(bj), np.asarray(aj)))
-    return out
+    return (bt.numpy(), at.numpy()), (np.asarray(bj), np.asarray(aj))
 
 
+@pytest.mark.parametrize("impl", ["topk", "sort"])
 @pytest.mark.parametrize("split", ["sqrt", "quantile"])
 @pytest.mark.parametrize("seed", range(4))
-def test_sort_split_parity_random_with_ties(split, seed):
+def test_split_matches_jax_lowerings(impl, split, seed):
     rng = np.random.default_rng(seed)
     n_cap = 64
     n_ok = int(rng.integers(1, n_cap))
     loss = np.full(n_cap, np.inf, np.float32)
-    loss[:n_ok] = rng.integers(0, 6, n_ok).astype(np.float32)
-    loss[rng.integers(0, n_ok, 2)] = np.nan
+    loss[:n_ok] = rng.integers(0, 6, n_ok).astype(np.float32)   # ties
+    loss[rng.integers(0, n_ok, 3)] = np.nan
     ok = np.zeros(n_cap, bool)
     ok[:n_ok] = True
     for gamma in (0.15, 0.25, 0.9):
         for lf in (3, 25, 100):
-            (b0, a0), (b1, a1), (bj, aj) = _split_both(loss, ok, gamma, lf,
-                                                       split)
-            np.testing.assert_array_equal(b0, b1)
-            np.testing.assert_array_equal(a0, a1)
-            np.testing.assert_array_equal(b0, bj)
-            np.testing.assert_array_equal(a0, aj)
-            assert not np.any(b0 & a0)
-            assert np.array_equal(b0 | a0, ok)
+            (bt, at), (bj, aj) = _splits(loss, ok, gamma, lf, split, impl)
+            np.testing.assert_array_equal(bt, bj)
+            np.testing.assert_array_equal(at, aj)
+            assert not np.any(bt & at)
+            assert np.array_equal(bt | at, ok)
 
 
-def test_sort_split_below_is_the_k_smallest():
+def test_split_below_is_the_k_smallest():
     loss = np.asarray([5, 1, 3, 2, 4, np.inf, np.inf], np.float32)
     ok = np.asarray([1, 1, 1, 1, 1, 0, 0], bool)
-    (b0, _), (b1, _), (bj, _) = _split_both(loss, ok, 0.5, 25, "quantile")
-    np.testing.assert_array_equal(b0, np.asarray([0, 1, 1, 1, 0, 0, 0],
-                                                 bool))
-    np.testing.assert_array_equal(b0, b1)
-    np.testing.assert_array_equal(b0, bj)
+    for impl in ("topk", "sort"):
+        (bt, _), (bj, _) = _splits(loss, ok, 0.5, 25, "quantile", impl)
+        np.testing.assert_array_equal(bt, np.asarray([0, 1, 1, 1, 0, 0, 0],
+                                                     bool))
+        np.testing.assert_array_equal(bt, bj)
 
 
-def test_sort_split_over_lanes():
-    """Lanes of the sort split equal their solo splits."""
+def test_split_over_lanes():
+    """Lanes of the split equal their solo splits."""
     rng = np.random.default_rng(5)
     loss = rng.integers(0, 4, (3, 32)).astype(np.float32)
     ok = rng.random((3, 32)) < 0.8
-    k = SimpleNamespace(lf=25, split="sqrt", split_impl="sort")
+    k = SimpleNamespace(lf=25, split="sqrt")
     b, a = tpe._TpeKernel._split(k, torch.as_tensor(loss),
                                  torch.as_tensor(ok), 0.25)
     for j in range(3):
@@ -204,45 +201,34 @@ def test_sort_split_over_lanes():
 
 
 @pytest.mark.parametrize("seed", range(2))
-def test_unfused_fit_equals_fused_and_jax_unfused(monkeypatch, seed):
+def test_fit_proposes_jax_unfused_row(monkeypatch, seed):
     monkeypatch.setenv("HYPEROPT_TPU_PALLAS", "interpret")
     monkeypatch.setenv("HYPEROPT_TPU_FUSED_STEP", "0")
     csj, cst = compile_j(flagship(hj)), compile_t(flagship(ht))
     hist = tpe_j._padded_history(_history(csj, 50, seed), N_CAP)
     kj = tpe_j.get_kernel(csj, N_CAP, N_CAND, 25)
     assert not kj.fused_step
-    fused = tpe.get_kernel(cst, N_CAP, N_CAND, 25, device=CPU)
-    unfused = tpe.get_kernel(cst, N_CAP, N_CAND, 25, device=CPU,
-                             fused_step=False)
+    kt = tpe.get_kernel(cst, N_CAP, N_CAND, 25, device=CPU)
     h = [torch.as_tensor(a) for a in hist]
-    below, above = fused._split(h[2], h[3], 0.25)
-    for gt in fused._gt:
-        for pw in (1.0, torch.as_tensor([0.5], dtype=torch.float32)):
-            lanes = [x[None] for x in h[:2]] if isinstance(pw, torch.Tensor) \
-                else h[:2]
-            bl, ab = ((below[None], above[None])
-                      if isinstance(pw, torch.Tensor) else (below, above))
-            a = fused._cont_fit(gt, *lanes, bl, ab, pw)
-            b = unfused._cont_fit(gt, *lanes, bl, ab, pw)
-            for x, y in zip(a, b):
-                assert torch.equal(x, y)
+    below, above = kt._split(h[2], h[3], 0.25)
+    pw = torch.as_tensor([1.0], dtype=torch.float32)
+    for gt in kt._gt:
+        solo = kt._cont_fit(gt, *h[:2], below, above, 1.0)
+        lanes = kt._cont_fit(gt, *(x[None] for x in h[:2]), below[None],
+                             above[None], pw)
+        for x, y in zip(solo, lanes):
+            assert torch.equal(x, y[0])
     key = jax.random.key(900 + seed)
     want, _ = kj._fn(key, *(jnp.asarray(a) for a in hist), np.float32(0.25),
                      np.float32(1.0))
-    noise = _jax_step_uniforms(key, kj)
-    got, _ = unfused(*h, 0.25, 1.0, noise=noise)
-    got_f, _ = fused(*h, 0.25, 1.0, noise=noise)
-    assert torch.equal(got, got_f)
+    got, _ = kt(*h, 0.25, 1.0, noise=_jax_step_uniforms(key, kj))
     _rows_agree(cst, got.numpy(), np.asarray(want))
 
 
 def test_lowerings_are_validated():
     cs = compile_t(flagship(ht))
-    for kw, name in ((dict(comp_sampler="normal"), "comp_sampler"),
-                     (dict(split_impl="radix"), "split_impl"),
-                     (dict(fused_step="yes"), "fused_step")):
-        with pytest.raises(ValueError, match=name):
-            tpe.get_kernel(cs, 32, 8, 25, device=CPU, **kw)
+    with pytest.raises(ValueError, match="comp_sampler"):
+        tpe.get_kernel(cs, 32, 8, 25, device=CPU, comp_sampler="normal")
 
 
 FLEET_SPACE = {"x": ht.hp.uniform("x", -5, 5),
@@ -257,12 +243,46 @@ def fleet_obj(p):
 ALGO = dict(n_EI_candidates=16, n_startup_jobs=6)
 
 
+BAD_LOWERINGS = [dict(ei_impl="tpu"), dict(ei_precision="f16"),
+                 dict(ei_topm=-1), dict(comp_sampler="normal"),
+                 dict(split="median"), dict(cat_prior="flat")]
+
+
+def _first_call(entry, cs, kw):
+    """``entry``'s first call with the lowering ``kw``, on an empty history
+    (a startup draw)."""
+    dom = ht.Domain(lambda d: 0.0, cs)
+    if entry == "suggest":
+        tpe.suggest([0], dom, ht.Trials(), 0, **kw)
+    elif entry == "dispatch":
+        dispatch.suggest_dispatch([0], dom, ht.Trials(), 0, noise=[], **kw)
+    elif entry == "cohort":
+        fleet.CohortScheduler(**kw)
+    elif entry == "kernel":
+        tpe._TpeKernel(cs, 32, 8, 25, device=CPU, **kw)
+    else:
+        fleet.fmin_fleet(fleet_obj, cs, n_lanes=2, max_evals=4, device=CPU,
+                         **kw)
+
+
+@pytest.mark.parametrize("kw", BAD_LOWERINGS,
+                         ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("entry", ["suggest", "dispatch", "cohort", "kernel",
+                                   "fleet"])
+def test_entry_points_check_the_lowering_first(entry, kw):
+    """A bad lowering raises at the first call, in startup too, before any
+    kernel is built."""
+    cs = compile_t(FLEET_SPACE)
+    cs.device = CPU
+    with pytest.raises(ValueError, match=next(iter(kw))):
+        _first_call(entry, cs, kw)
+    assert not cs.__dict__.get("_tpe_kernels")
+
+
 @pytest.mark.parametrize("kw", [
     dict(comp_sampler="gumbel"),
     dict(comp_sampler="gumbel", multivariate=True),
-    dict(split_impl="sort"),
-    dict(fused_step=False),
-], ids=["gumbel", "gumbel_mv", "sort", "unfused"])
+], ids=["gumbel", "gumbel_mv"])
 def test_fleet_lanes_equal_solo_runs(kw):
     n = 20
     infos = fleet.fmin_fleet(fleet_obj, FLEET_SPACE, n_lanes=3, max_evals=n,
@@ -272,27 +292,6 @@ def test_fleet_lanes_equal_solo_runs(kw):
                                  seed=8 + j, device=CPU, **ALGO, **kw)
         np.testing.assert_array_equal(info["losses"], solo["losses"])
         np.testing.assert_array_equal(info["vals"], solo["vals"])
-
-
-@pytest.mark.parametrize("kw", [dict(split_impl="sort"),
-                                dict(fused_step=False)],
-                         ids=["sort", "unfused"])
-def test_sort_and_unfused_land_the_default_trials(kw):
-    """Device mode and the hosted loop: the same trials as the defaults."""
-    _, base = ht.fmin_device(fleet_obj, FLEET_SPACE, max_evals=24, seed=2,
-                             device=CPU, **ALGO)
-    _, other = ht.fmin_device(fleet_obj, FLEET_SPACE, max_evals=24, seed=2,
-                              device=CPU, **ALGO, **kw)
-    np.testing.assert_array_equal(base["vals"], other["vals"])
-    runs = []
-    for extra in ({}, kw):
-        t = ht.Trials()
-        ht.fmin(lambda d: abs(d["x"] - 1.0) + d["c"], FLEET_SPACE,
-                algo=partial(tpe.suggest, **ALGO, **extra), max_evals=16,
-                trials=t, rstate=np.random.default_rng(1),
-                show_progressbar=False, device=CPU)
-        runs.append([d["misc"]["vals"] for d in t._dynamic_trials])
-    assert runs[0] == runs[1]
 
 
 def test_gumbel_hosted_equals_device_stride1():

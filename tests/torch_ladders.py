@@ -35,8 +35,8 @@ def thousand_trials_bucket_ladder(device):
          device=device)
     assert len(t) == 1050
     kind = torch.device(device).type
-    caps = sorted({k[0] for k in getattr(cs, "_tpe_kernels", {})
-                   if k[1] == 16 and torch.device(k[5]).type == kind})
+    caps = sorted({k.n_cap for k in getattr(cs, "_tpe_kernels", {}).values()
+                   if k.n_cand == 16 and k.device.type == kind})
     assert caps[0] <= 32 and 1024 <= caps[-1] <= 2048, caps
     assert len(caps) <= 7, caps
     best = t.best_trial["result"]["loss"]

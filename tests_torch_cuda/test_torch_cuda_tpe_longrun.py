@@ -31,8 +31,8 @@ def _graphs():
 def _kernels(cs):
     """The space's kernels on the card: the ids of those that have
     stepped, and the hosted graphs they hold."""
-    ks = [k for key, k in getattr(cs, "_tpe_kernels", {}).items()
-          if torch.device(key[5]).type == "cuda"]
+    ks = [k for k in getattr(cs, "_tpe_kernels", {}).values()
+          if k.device.type == "cuda"]
     return {id(k) for k in ks if k.stepped}, sum(len(k.hosted) for k in ks)
 
 
