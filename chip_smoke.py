@@ -7,10 +7,11 @@ Run from the repository root with no arguments::
 
 Phases, each fatal on failure:
 
-1. build       compile the CUDA EI kernels from ``hyperopt_tpu_torch/csrc``
+1. build       compile the CUDA kernels from ``hyperopt_tpu_torch/csrc``
                (one ``nvcc`` per source, started together): K1 (f32) and
                K2 (bf16) in ``ei_scores.cu``, K3 (tensor cores) in
-               ``ei_scores_mxu.cu``.
+               ``ei_scores_mxu.cu``, the lanes' draw in
+               ``lane_uniforms.cu``.
 2. ei_kernel   hold each kernel against its plain PyTorch version on the
                card at the TPE step's shape (31 columns x 10,000 candidates
                x (26 + 1025) components), at the 2,048 bucket's shape
@@ -18,7 +19,13 @@ Phases, each fatal on failure:
                shapes, with extreme values, a dead tail and dead
                components scattered through the staged chunks; time the
                kernels at both step shapes and the plain version at the
-               first.
+               first.  Then ``lane_uniforms``: the one-launch draw of 1
+               and 64 lanes' uniforms (flagship space, 10,000
+               candidates) against ``torch.rand``'s sheets bit for bit
+               and against its plain twin, timed beside its bound (the
+               bytes it writes), the twin, and the per-lane
+               ``torch.rand`` calls and stacks it replaces, eager and
+               replayed from a graph with their generators registered.
 3. suggest_step  one TPE step at full width (50-dim space, 1,000-trial
                history, 10,000 candidates), a few times, then three more
                under ``torch.profiler`` (device-busy share, launches and
@@ -292,6 +299,7 @@ import tempfile
 import threading
 import time
 from functools import partial
+from types import SimpleNamespace
 from xml.etree import ElementTree
 
 import numpy as np
@@ -307,6 +315,7 @@ from hyperopt_tpu_torch.obs import costs, devtel, metrics  # noqa: E402
 from hyperopt_tpu_torch.obs import trace as obs_trace  # noqa: E402
 from hyperopt_tpu_torch.obs.events import EVENTS  # noqa: E402
 from hyperopt_tpu_torch.ops import ei_scores as ei_mod  # noqa: E402
+from hyperopt_tpu_torch.ops import lane_uniforms  # noqa: E402
 from hyperopt_tpu_torch.space import (  # noqa: E402
     CATEGORICAL, LOGNORMAL, LOGUNIFORM, NORMAL, QLOGNORMAL, QNORMAL,
     QLOGUNIFORM, RANDINT, compile_space, make_generator)
@@ -789,6 +798,112 @@ def phase_ei_kernel(dev):
     return out
 
 
+def phase_lane_uniforms(dev):
+    """The one-launch draw of every lane's uniforms at the fleet's shape
+    (the flagship space at ``N_CAND`` candidates; 1 and 64 lanes, each a
+    startup and a TPE generator stream): its sheets against the
+    ``torch.rand`` calls it replaces (``cs.draw_uniforms`` and
+    ``draw_noise`` on each lane's two generators, then the lanes'
+    stacks) and against its plain twin, bit for bit; CUDA-event ms beside
+    its bound (the bytes it writes at ``HBM_BYTES_PER_S``), the twin's
+    ms, and those calls' ms (``library_ms``), eager and replayed from a
+    CUDA graph with the generators registered, reseeded before each
+    replay (the parent's in-graph draws).  Prints one ``lane_uniforms
+    json:`` line per lane count."""
+    cs = compile_space(flagship_space())
+    kern = tpe.get_kernel(cs, 1024, N_CAND, 25, device=dev)
+    rng = np.random.default_rng(25)
+    for lanes in (1, 64):
+        seg = SimpleNamespace(cs=cs, kern=kern, n_lanes=lanes,
+                              device=dev)
+        device._Segment._plan_draws(seg, *lane_uniforms.card_shape(dev))
+        seeds = [int(s) for s in rng.integers(0, 2 ** 31 - 1, lanes)]
+        seg.seeds.copy_(torch.tensor(seeds, dtype=torch.int64))
+        gens = [torch.Generator(device=dev) for _ in range(2 * lanes)]
+
+        def reseed():
+            for j, s in enumerate(seeds):
+                gens[2 * j].manual_seed(s)
+                gens[2 * j + 1].manual_seed(s)
+
+        def library():
+            starts = [cs.draw_uniforms(1, gens[2 * j], dev)
+                      for j in range(lanes)]
+            nz = tpe.stack_noise([kern.draw_noise(gens[2 * j + 1])
+                                  for j in range(lanes)])
+            return {k: torch.cat([u[k] for u in starts])
+                    for k in starts[0]}, nz
+
+        def sheets(su, nz):
+            return list(su.values()) + [t for pair in nz["cont"]
+                                        for t in pair] + [nz["cat"]]
+
+        lane_uniforms.draw(seg.plan, seg.seeds)
+        reseed()
+        want = sheets(*library())
+        got = sheets(seg.su, seg.nz)
+        for g, w in zip(got, want):
+            if not torch.equal(g.reshape(-1).view(torch.int32),
+                               w.reshape(-1).view(torch.int32)):
+                fail(f"lane_uniforms: {lanes} lanes: a sheet of shape "
+                     f"{tuple(g.shape)} differs from torch.rand's")
+        for slot, offset, numel, grid, out in seg.plan.sheets:
+            twin = lane_uniforms.uniform_sheet_reference(
+                seeds[slot], offset, numel, grid, device=dev)
+            if not torch.equal(out.reshape(-1).view(torch.int32),
+                               twin.view(torch.int32)):
+                fail(f"lane_uniforms: {lanes} lanes: the twin differs on "
+                     f"lane {slot}'s sheet of {numel}")
+        floats = sum(numel for _, _, numel, _, _ in seg.plan.sheets)
+        blocks = seg.plan.philox_blocks
+        bound_ms = 4 * floats / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(lambda: lane_uniforms.draw(seg.plan, seg.seeds))
+        plain_ms = cuda_ms(lambda: [
+            lane_uniforms.uniform_sheet_reference(
+                seeds[slot], offset, numel, grid, device=dev)
+            for slot, offset, numel, grid, _ in seg.plan.sheets],
+            reps=3, warmup=1, inner=1)
+
+        def eager():
+            reseed()
+            library()
+
+        library_ms = cuda_ms(eager, reps=5, warmup=1, inner=2)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            reseed()
+            library()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for g in gens:
+            graph.register_generator_state(g)
+        with torch.cuda.graph(graph):
+            library()
+
+        def replayed():
+            reseed()
+            graph.replay()
+
+        replay_ms = cuda_ms(replayed, reps=5, warmup=1, inner=4)
+        reseed()
+        graph.replay()
+        torch.cuda.synchronize()
+        print(f"lane_uniforms: {lanes} lanes, {len(seg.plan.sheets)} "
+              f"sheets, {floats} floats, {blocks} Philox blocks: kernel "
+              f"{ms:.4f} ms (bound {bound_ms:.4f}, bytes), twin "
+              f"{plain_ms:.3f}, torch.rand calls {library_ms:.4f} eager, "
+              f"{replay_ms:.4f} replayed with {2 * lanes} generators; "
+              f"bitwise equal to torch.rand and to the twin")
+        print("lane_uniforms json: " + json.dumps({
+            "lanes": lanes, "sheets": len(seg.plan.sheets),
+            "floats": floats, "philox_blocks": blocks,
+            "blocks": seg.plan.n_blocks, "ms": ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_graph_ms": replay_ms,
+            "bitwise": True}))
+
+
 def phase_suggest_step(dev):
     space = flagship_space()
     domain = base.Domain(objective, space)
@@ -1162,17 +1277,17 @@ def replay_ms(seg, h, rows):
 def host_split_ms(seg, h, rows):
     """The host's own time for one replay, with the card idle when it
     starts (``replay_ms``'s enqueue time also holds the waits of a full
-    launch queue): reseeding every generator of the segment (``2·lanes``
-    ``manual_seed`` calls), then ``graph.replay()`` (with the
-    generator-state fills of its prologue); ms, averaged over
+    launch queue): the trial's lane seeds into the segment's seed buffer
+    (one non-blocking copy from a pinned table, as ``_Segment.run``
+    makes it), then ``graph.replay()``; ms, averaged over
     ``DEVICE_PROFILED`` replays."""
     load(seg, h, rows)
+    table = torch.from_numpy(replay_seeds(seg)).pin_memory()
     seed_s = replay_s = 0.0
     for t in range(DEVICE_PROFILED):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for g in seg.gens:
-            g.manual_seed(t)
+        seg.seeds.copy_(table[t], non_blocking=True)
         t1 = time.perf_counter()
         seg.graph.replay()
         t2 = time.perf_counter()
@@ -1534,7 +1649,7 @@ def phase_fleet(dev, solo_rates):
               f"{DEVICE_PROFILED} after {n} rows: {card_ms:.3f} ms per "
               f"replay on the card (CUDA events), host enqueue "
               f"{enqueue_ms:.3f} ms per replay; one replay alone on the "
-              f"host: reseeding {seed_ms:.3f} ms, graph.replay() "
+              f"host: its seeds copied {seed_ms:.3f} ms, graph.replay() "
               f"{bare_ms:.3f} ms; pool {seg.pool_bytes} bytes")
     print(f"fleet (b): the solo device-mode runs of this process "
           f"(device_mode (d), 1,000 trials): "
@@ -4560,6 +4675,7 @@ def main():
 
     timed("build", phase_build)
     kernels = timed("ei_kernel", phase_ei_kernel, dev)
+    timed("lane_uniforms", phase_lane_uniforms, dev)
     hosted = timed("suggest_step", phase_suggest_step, dev)
     fmin_launches = timed("fmin", phase_fmin, dev)
     liar_launches = timed("liar_batch", phase_liar_batch, dev)

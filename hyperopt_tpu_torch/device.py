@@ -8,9 +8,9 @@ loop pays ~730 eager kernel launches of the TPE step, a fetch and the
 Trials bookkeeping per trial.  When the objective is a torch function, the
 whole trial can stay on the card: draw, propose, evaluate, insert the row
 into a device-resident history.  Here that trial is captured once as a
-CUDA graph and replayed once per trial; the host only reseeds the graph's
-generators before each replay and fetches the landed rows once per
-``sync_stride`` trials.
+CUDA graph and replayed once per trial; the host only writes the trial's
+seeds into the graph's seed buffer before each replay and fetches the
+landed rows once per ``sync_stride`` trials.
 
 **Objective contract.**  ``fn`` takes a flat dict ``{label: 0-d float32
 tensor}`` covering every hyperparameter of the space (quantized and
@@ -37,21 +37,25 @@ buffers stacked along a leading lane axis:
 1. both arms of the proposal: a startup draw (``CompiledSpace.sample``)
    and a TPE step (``_TpeKernel._suggest_lanes``, factorized or joint
    (``multivariate``), with its EI kernel launched once for all lanes, on
-   the sampler/split/fit lowering asked for), each lane's uniforms from
-   its own pair
-   of ``torch.Generator``s, and ``torch.where`` on the device count of
-   ok rows picks one per lane (a graph cannot branch; the JAX package's
-   ``lax.cond``);
+   the sampler/split/fit lowering asked for), and ``torch.where`` on the
+   device count of ok rows picks one per lane (a graph cannot branch; the
+   JAX package's ``lax.cond``);
 2. the objective on the picked rows;
 3. the insert at each lane's device index ``i`` (``tpe._insert_row``),
    ``i += 1``.
 
-Before each replay the host seeds each lane's two generators with that
-lane's trial seed (``2L`` ``manual_seed`` calls),
-one ``rstate.integers(2**31 - 1)`` per trial as in the hosted loop, so
-each arm draws exactly what the hosted ``rand.suggest_batch`` or
-``tpe.suggest_dispatch`` draws from that seed.  The stride moves only the
-fetch boundary, so the landed trials do not depend on it.  Losses land
+Each lane draws from its trial seed, one ``rstate.integers(2**31 - 1)``
+per trial as in the hosted loop, exactly what the hosted
+``rand.suggest_batch`` or ``tpe.suggest_dispatch`` draws from that seed:
+the startup arm's sheets from one generator seeded with ``seed % 2**32``,
+the TPE arm's from a second seeded alike.  On CUDA no generator exists:
+one launch of ``ops/lane_uniforms.py``'s kernel writes every lane's
+sheets, with ``torch.rand``'s bits, into static stacked buffers, reading
+the lanes' seeds from an int64 ``[L]`` buffer that the host fills before
+each replay with one non-blocking copy from a pinned table of the
+segment's seeds.  On the CPU each lane keeps its two ``torch.Generator``s
+(the CPU's own stream), reseeded before each trial.  The stride moves only
+the fetch boundary, so the landed trials do not depend on it.  Losses land
 with the hosted semantics: a non-finite loss is ``ok=False`` and ``+inf``
 in the history, and goes raw into the Trials doc.
 
@@ -87,18 +91,21 @@ Counters (plain ints, like ``ei_scores.launches``): ``fetch_syncs``
 ``trials_landed``, ``land_gc_held`` (fleet segments landed with the
 collector held; 0 when the caller had turned it off), ``captures``,
 ``replays``, ``run_cache_hits``, ``run_cache_misses`` and
-``eager_steps`` (trials run without a graph: only on the CPU).  All but
-``eager_steps`` have registry twins (``device.fetch_syncs``,
-``device.segments``, ``device.trials_landed``, ``device.land_gc_held``,
-``device.captures``, ``device.run_cache.hits`` and ``.misses``, and
-``device.replays``, which moves once per :meth:`_Segment.run`), and an
+``eager_steps`` (trials run without a graph: only on the CPU) and
+``lane_draws`` (trials whose uniforms came from the one-launch draw:
+every replay on CUDA).  All but ``eager_steps`` have registry twins
+(``device.fetch_syncs``, ``device.segments``, ``device.trials_landed``,
+``device.land_gc_held``, ``device.captures``, ``device.run_cache.hits``
+and ``.misses``, ``device.lane_draws``, and ``device.replays``; the last
+two move once per :meth:`_Segment.run`), and an
 armed run adds the ``<mode>.<stride>`` twins of the first two.  Always
 on, made at import: the counter ``device.capture_ms`` (each capture's
 warm-up and capture, wall milliseconds) and the gauge
 ``device.pool_bytes`` (the last captured graph's pool).
 ``ei_scores.launches`` counts the EI kernel's eager launches (the warm-up
 steps); a capture adds to ``ei_scores.recorded_by`` instead, and replays
-pass through neither.
+pass through neither; ``lane_uniforms.draw.launches`` and
+``.recorded_by`` count the draw's alike.
 
 **Meshes** (``dispatch.py``).  ``fmin_device(mesh=)`` with one run
 captures the step with :class:`dispatch.ShardedTpeKernel`: each rank of
@@ -130,6 +137,7 @@ from .obs import costs as _costs
 from .obs import devtel as _devtel
 from .obs import metrics as _metrics
 from .obs.events import EVENTS
+from .ops import lane_uniforms as _lane_uniforms
 from .space import CompiledSpace, compile_space, resolve_device
 from .tpe import (
     _bucket,
@@ -180,6 +188,7 @@ replays = 0
 run_cache_hits = 0
 run_cache_misses = 0
 eager_steps = 0
+lane_draws = 0
 
 
 # The counters' registry twins (per segment or per run, not per trial).
@@ -188,7 +197,8 @@ _TWINS = {"fetch_syncs": "device.fetch_syncs", "segments": "device.segments",
           "land_gc_held": "device.land_gc_held",
           "captures": "device.captures",
           "run_cache_hits": "device.run_cache.hits",
-          "run_cache_misses": "device.run_cache.misses"}
+          "run_cache_misses": "device.run_cache.misses",
+          "lane_draws": "device.lane_draws"}
 _CAPTURE_MS = _metrics.registry().counter("device.capture_ms")
 _POOL_BYTES = _metrics.registry().gauge("device.pool_bytes")
 _REPLAYS = _metrics.registry().counter("device.replays")
@@ -199,8 +209,10 @@ def reset_counters():
     counting)."""
     global fetch_syncs, segments, trials_landed, land_gc_held, captures
     global replays, run_cache_hits, run_cache_misses, eager_steps
+    global lane_draws
     fetch_syncs = segments = trials_landed = land_gc_held = captures = 0
     replays = run_cache_hits = run_cache_misses = eager_steps = 0
+    lane_draws = 0
 
 
 def _bump(**deltas):
@@ -259,9 +271,14 @@ class _Segment:
     lands while ``i[j] < limit[j]``), and the no-progress state of
     ``fmin_device`` (``patience``, ``since``, ``best``,
     ``min_improvement``), all ``[L]``.  :meth:`load` fills them in place,
-    so the addresses the graph captured stay valid.  Lane ``j`` owns the
-    generators ``gens[2j]`` (startup draws) and ``gens[2j + 1]`` (the TPE
-    step's uniforms).  With ``telemetry``, the slab's columns ``eib``
+    so the addresses the graph captured stay valid.  On the CPU lane ``j``
+    owns the generators ``gens[2j]`` (startup draws) and ``gens[2j + 1]``
+    (the TPE step's uniforms).  On CUDA ``gens`` is empty and ``plan``
+    draws every lane's sheets in one launch (:meth:`_plan_draws`) from
+    ``seeds`` into ``su`` (the startup sheets, :meth:`CompiledSpace.sample`'s
+    ``noise`` for ``L`` rows) and ``nz`` (the TPE sheets,
+    :func:`stack_noise`'s layout); the CPU has ``plan = None``.  With
+    ``telemetry``, the slab's columns ``eib``
     (f32) and ``ties`` (int64), ``[L, n_cap + 1]``, get each trial's TPE
     arm's winning EI score and tie count at its row.  A run holds ``lock``
     from :meth:`load` to its last :meth:`fetch`: runs of one captured step
@@ -309,7 +326,12 @@ class _Segment:
             self.eib = torch.full((n_lanes, cap), -math.inf, dtype=f32,
                                   device=dev)
             self.ties = torch.zeros((n_lanes, cap), dtype=i64, device=dev)
-        self.gens = [torch.Generator(device=dev) for _ in range(2 * n_lanes)]
+        self.gens, self.plan = [], None
+        if dev.type == "cuda":
+            self._plan_draws(*_lane_uniforms.card_shape(dev))
+        else:
+            self.gens = [torch.Generator(device=dev)
+                         for _ in range(2 * n_lanes)]
         self.lock = threading.Lock()
         self._patience = _NO_PATIENCE
         self.graph = None
@@ -319,26 +341,62 @@ class _Segment:
         self.build_s = time.perf_counter() - t0
         self.fresh = True
 
+    def _plan_draws(self, n_sm, threads_per_sm):
+        """The static sheets of every lane's uniforms and the plan that
+        draws them in one launch, for a card of ``n_sm`` SMs of
+        ``threads_per_sm`` threads: lane ``j``'s startup sheets
+        (:meth:`CompiledSpace.draw_uniforms` for one row, in its order)
+        and its TPE sheets (:meth:`_TpeKernel.draw_noise`'s order) are two
+        generator streams, both seeded with ``seeds[j]``."""
+        lanes, dev = self.n_lanes, self.device
+
+        def sheets(shape):
+            return torch.empty((lanes, *shape), dtype=torch.float32,
+                               device=dev)
+
+        self.seeds = torch.zeros(lanes, dtype=torch.int64, device=dev)
+        self.su = {name: sheets(shape[1:]) for name, shape
+                   in self.cs.noise_shapes(1).items() if shape[1]}
+        shapes = self.kern.noise_shapes()
+        self.nz = {"cont": [(sheets(a), sheets(b))
+                            for a, b in shapes["cont"]],
+                   "cat": sheets(shapes["cat"])}
+        tpe_sheets = [t for pair in self.nz["cont"] for t in pair] \
+            + [self.nz["cat"]]
+        streams = []
+        for j in range(lanes):
+            streams.append((j, [u[j] for u in self.su.values()]))
+            streams.append((j, [t[j] for t in tpe_sheets]))
+        self.plan = _lane_uniforms.DrawPlan(streams, n_sm, threads_per_sm)
+
     def _step(self, noises=None):
-        """One trial of every lane, in place on the buffers.  ``noises``:
-        the TPE arm's uniforms, one :meth:`_TpeKernel.draw_noise` dict per
-        lane, instead of the lanes' generators'."""
+        """One trial of every lane, in place on the buffers.  ``noises``
+        (CPU only): the TPE arm's uniforms, one
+        :meth:`_TpeKernel.draw_noise` dict per lane, instead of the lanes'
+        generators'."""
         n, lanes = self.n_cap, self.n_lanes
         hist = (self.hv[:, :n], self.ha[:, :n], self.hl[:, :n],
                 self.hok[:, :n])
         n_ok = torch.sum(hist[3], dim=-1)
-        # Each lane draws what a solo run draws from its own generators;
-        # the draws are stacked along the lane axis.
-        starts = [self.cs.draw_uniforms(1, self.gens[2 * j], self.device)
-                  for j in range(lanes)]
-        su = starts[0] if lanes == 1 else {
-            k: torch.cat([u[k] for u in starts]) for k in starts[0]}
-        sv, sa = self.cs.sample(lanes, noise=su, device=self.device)
-        if noises is None:
-            noises = [self.kern.draw_noise(self.gens[2 * j + 1])
+        # Each lane draws what a solo run draws from its seed, stacked
+        # along the lane axis: in one launch on CUDA, from the lane's
+        # generators on the CPU.
+        if self.plan is not None:
+            _lane_uniforms.draw(self.plan, self.seeds)
+            su, nz = self.su, self.nz
+        else:
+            starts = [self.cs.draw_uniforms(1, self.gens[2 * j],
+                                            self.device)
                       for j in range(lanes)]
+            su = starts[0] if lanes == 1 else {
+                k: torch.cat([u[k] for u in starts]) for k in starts[0]}
+            if noises is None:
+                noises = [self.kern.draw_noise(self.gens[2 * j + 1])
+                          for j in range(lanes)]
+            nz = stack_noise(noises)
+        sv, sa = self.cs.sample(lanes, noise=su, device=self.device)
         tv, ta, ei_best, ties = self.kern._suggest_lanes(
-            *hist, self.gamma, self.prior_weight, noise=stack_noise(noises))
+            *hist, self.gamma, self.prior_weight, noise=nz)
         startup = (n_ok < self.n_startup)[:, None]
         row = torch.where(startup, sv, tv)
         act = torch.where(startup, sa, ta)
@@ -395,8 +453,6 @@ class _Segment:
                         torch.cuda.set_sync_debug_mode(mode)
                 torch.cuda.current_stream(dev).wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
-                for g in self.gens:
-                    graph.register_generator_state(g)
                 with torch.cuda.graph(graph, capture_error_mode="global"):
                     self._step()
             except RuntimeError as e:
@@ -451,7 +507,13 @@ class _Segment:
         current index: ``seeds[t]`` is an int (one lane) or one seed per
         lane.  ``noises[t]`` replaces trial ``t``'s TPE uniforms: a
         :meth:`_TpeKernel.draw_noise` dict (one lane) or a list of one per
-        lane (CPU only: a graph cannot take them).  With a patience loaded,
+        lane (CPU only: the lanes' generators' draws are what they
+        replace).  Each trial's seeds reach the draws as ``seed % 2**32``:
+        on the CPU through ``manual_seed`` of the lanes' generators; with
+        a ``plan``, copied into ``seeds`` (on CUDA a non-blocking copy
+        from a pinned table of the segment's seeds, which the caching
+        host allocator keeps until the copies have run).  With a patience
+        loaded,
         stop replaying once every lane's no-progress stop is seen.  On the
         card, every ``_POLL_EVERY`` replays the stop counts are copied to
         pinned memory without a sync; a copy is read once it has landed,
@@ -461,22 +523,32 @@ class _Segment:
         global replays, eager_steps
         seeds = np.asarray(seeds, np.int64).reshape(-1, self.n_lanes)
         if noises is not None:
-            if self.graph is not None:
-                raise ValueError("noises= runs the step eagerly: CPU only")
+            if not self.gens:
+                raise ValueError("noises= replaces the draws of the lanes' "
+                                 "generators: CPU only")
             if len(noises) != len(seeds):
                 raise ValueError(f"{len(noises)} noise entries for "
                                  f"{len(seeds)} trials")
             noises = [[nz] if isinstance(nz, dict) else list(nz)
                       for nz in noises]
+        table = None
+        if self.plan is not None:
+            table = torch.from_numpy(seeds % 2 ** 32)
+            if self.device.type == "cuda":
+                table = table.pin_memory()
         polls = deque()
         stop_poll = self._patience != _NO_PATIENCE
-        ran = 0
+        ran = drawn = 0
         try:
             for t, lane_seeds in enumerate(seeds):
-                for j, seed in enumerate(lane_seeds):
-                    s = int(seed) % (2 ** 32)
-                    self.gens[2 * j].manual_seed(s)
-                    self.gens[2 * j + 1].manual_seed(s)
+                if table is not None:
+                    self.seeds.copy_(table[t], non_blocking=True)
+                    drawn += 1
+                else:
+                    for j, seed in enumerate(lane_seeds):
+                        s = int(seed) % (2 ** 32)
+                        self.gens[2 * j].manual_seed(s)
+                        self.gens[2 * j + 1].manual_seed(s)
                 if self.graph is not None:
                     self.graph.replay()
                     replays += 1
@@ -504,9 +576,11 @@ class _Segment:
                     if self._stopped(since):
                         return
         finally:
-            # The registry twin moves once a segment, not once a replay.
+            # The registry twins move once a segment, not once a replay.
             if ran:
                 _REPLAYS.inc(ran)
+            if drawn:
+                _bump(lane_draws=drawn)
 
     def _stopped(self, since):
         """Whether every lane's no-progress count has reached the

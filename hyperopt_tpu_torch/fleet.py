@@ -14,8 +14,9 @@ EI kernel included (``31·L`` columns on its ``grid.y``).  Two halves:
   one CUDA graph for all lanes (``device._Segment`` with lanes), one
   replay per trial of every lane and ``ceil(max_evals / sync_stride)``
   fetches for the whole fleet.  Lane ``j`` draws its per-trial seeds from
-  ``default_rng(seed + j)`` at ``fmin``'s cadence and owns its two
-  generators, so it lands what a solo ``fmin(mode="device",
+  ``default_rng(seed + j)`` at ``fmin``'s cadence and draws from them
+  what its two generators would (one launch draws every lane's sheets on
+  CUDA), so it lands what a solo ``fmin(mode="device",
   rstate=default_rng(seed + j))`` lands, bit for bit.
 * :class:`CohortScheduler`: the hosted suggests of many experiments in
   one dispatch: requests that share a space's structure

@@ -22,7 +22,8 @@ Three lowerings of the same function, as in the JAX package:
 :func:`ei_scores` launches the kernel for CUDA tensors and uses
 :func:`ei_scores_reference` for CPU tensors; there is no other route.  The
 kernels are compiled with ``nvcc`` at first use, one plain-C shared library
-per source, all sources at once, under ``build/hyperopt_tpu_torch/`` (named
+per source, all sources at once (``lane_uniforms.py``'s kernel among
+them), under ``build/hyperopt_tpu_torch/`` (named
 by the hash of the source), and bound with ``ctypes``.  The build holds a
 module lock and a lock file in the build directory, so threads, and
 processes sharing the checkout (a driver and its workers), that first reach
@@ -55,14 +56,23 @@ CAPTURED_ENTRY_POINTS = (
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# The port's kernel libraries, built together: the EI kernels and
+# ops/lane_uniforms.py's draw.
 _SOURCES = {"ei_scores": _CSRC / "ei_scores.cu",
-            "ei_scores_mxu": _CSRC / "ei_scores_mxu.cu"}
+            "ei_scores_mxu": _CSRC / "ei_scores_mxu.cu",
+            "lane_uniforms": _CSRC / "lane_uniforms.cu"}
 # Lowering -> (library, C entry point).  Every entry takes the same
 # arguments.
 _ENTRIES = {"f32": ("ei_scores", "ei_scores_launch"),
             "bf16": ("ei_scores", "ei_scores_bf16_launch"),
             "mxu": ("ei_scores_mxu", "ei_scores_mxu_launch")}
 LOWERINGS = tuple(_ENTRIES)
+_EI_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# C entry point -> (library, argument types); each returns the launch's
+# CUDA error.
+_ARGTYPES = {entry: (lib, _EI_ARGTYPES) for lib, entry in _ENTRIES.values()}
+_ARGTYPES["lane_uniforms_launch"] = (
+    "lane_uniforms", [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hyperopt_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -115,13 +125,11 @@ def compile_library(source, out) -> subprocess.Popen:
 
 def load_library(path, entries) -> ctypes.CDLL:
     """Load a kernel library and declare the argument types of its
-    ``entries`` (names of C entry points, which all take the same
-    arguments)."""
+    ``entries`` (names of C entry points)."""
     dll = ctypes.CDLL(str(path))
     for entry in entries:
         fn = getattr(dll, entry)
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[entry][1]
         fn.restype = ctypes.c_int
     return dll
 
@@ -185,7 +193,7 @@ def _build_locked() -> dict:
     for name, (path, _seconds) in out.items():
         if name not in _libs:
             _libs[name] = load_library(
-                path, [e for lib, e in _ENTRIES.values() if lib == name])
+                path, [e for e, (lib, _) in _ARGTYPES.items() if lib == name])
     return out
 
 

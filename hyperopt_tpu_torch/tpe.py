@@ -588,25 +588,33 @@ class _TpeKernel:
 
     # -- the step ------------------------------------------------------------
 
+    def noise_shapes(self):
+        """Shapes of one lane's uniforms, in :meth:`draw_noise`'s layout
+        and draw order: ``{"cont": [(uc, u) per group], "cat": shape}``."""
+        n = self.n_cand
+        if self.comp_sampler == "gumbel":
+            k_b = min(self.lf, self.n_cap) + 1
+            return {"cont": [((len(g), n, k_b), (len(g), n))
+                             for g in self.groups],
+                    "cat": (len(self.cat_pids), n, self.cat_kmax)}
+        return {"cont": [((len(g), n), (len(g), n)) for g in self.groups],
+                "cat": (len(self.cat_pids), n)}
+
     def draw_noise(self, generator=None):
         """One lane's uniforms: ``{"cont": [(uc, u) per group], "cat":
         u}`` with ``[C, n_cand]`` / ``[D, n_cand]`` shapes; with
         ``comp_sampler="gumbel"``, ``uc`` is ``[C, n_cand, K_b]`` (``K_b``
         the below mixture's components) and ``cat`` ``[D, n_cand, kmax]``:
-        the uniforms of the Gumbel draws."""
+        the uniforms of the Gumbel draws.  Drawn in the order of
+        :meth:`noise_shapes`."""
 
-        def r(*shape):
+        def r(shape):
             return torch.rand(shape, generator=generator, device=self.device,
                               dtype=torch.float32)
 
-        n = self.n_cand
-        if self.comp_sampler == "gumbel":
-            k_b = min(self.lf, self.n_cap) + 1
-            return {"cont": [(r(len(g), n, k_b), r(len(g), n))
-                             for g in self.groups],
-                    "cat": r(len(self.cat_pids), n, self.cat_kmax)}
-        return {"cont": [(r(len(g), n), r(len(g), n)) for g in self.groups],
-                "cat": r(len(self.cat_pids), n)}
+        shapes = self.noise_shapes()
+        return {"cont": [(r(a), r(b)) for a, b in shapes["cont"]],
+                "cat": r(shapes["cat"])}
 
     def max_lanes(self):
         """The most lanes one step takes: the EI kernel's column axis

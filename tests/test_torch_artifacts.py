@@ -74,7 +74,8 @@ def test_chip_smoke_kernels_and_contract_lines_schema():
 def test_chip_smoke_phase_json_lines_schema():
     tree = _tree("chip_smoke.py")
     by_phase = {}
-    for phase in ("phase_netstore", "phase_service", "phase_show"):
+    for phase in ("phase_netstore", "phase_service", "phase_show",
+                  "phase_lane_uniforms"):
         by_phase[phase] = [_dict_keys(d)
                            for d in _dumped_dicts(_function(tree, phase))]
     assert {"server_suggest_ms", "inprocess_suggest_ms", "n_docs",
@@ -84,6 +85,9 @@ def test_chip_smoke_phase_json_lines_schema():
             "turns"} <= by_phase["phase_service"][0]
     assert {"card", "steps_s", "wal_records", "wal_bytes",
             "lint_findings"} <= by_phase["phase_show"][0]
+    assert {"lanes", "floats", "ms", "bound_ms", "plain_ms", "library_ms",
+            "library_graph_ms", "bitwise"} <= by_phase[
+                "phase_lane_uniforms"][0]
 
 
 def test_chip_ei_ab_artifact_schema():
