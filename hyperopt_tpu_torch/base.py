@@ -23,6 +23,8 @@ from .exceptions import (
     InvalidResultStatus,
     InvalidTrial,
 )
+from .obs import trace as _trace
+from .obs.metrics import registry as _metrics_registry
 from .space import CompiledSpace, compile_space
 
 JOB_STATE_NEW = 0
@@ -180,6 +182,11 @@ def docs_from_samples(cs: CompiledSpace, new_ids, vals, active,
         doc["misc"]["vals"] = vals_d
         docs.append(doc)
     return docs
+
+
+# Rows Trials.history parsed from documents; made at import so that it
+# reads 0 where nothing was parsed.
+_ROWS_PARSED = _metrics_registry().counter("trials.rows_parsed")
 
 
 def _parse_doc_row(tvals, cs, vals, active, i):
@@ -408,7 +415,9 @@ class Trials:
           ok     bool[N]    status ok with a finite loss
           tids   i64[N]
         Rebuilt incrementally: only trials completed since the last call
-        are parsed while the cached tid prefix still matches.
+        are parsed while the cached tid prefix still matches.  That parse
+        is the span ``trials.parse`` (``obs/trace.py``), and the registry
+        counter ``trials.rows_parsed`` counts its rows.
         """
         with self._lock:
             done = [t for t in self._trials if t["state"] == JOB_STATE_DONE]
@@ -433,14 +442,19 @@ class Trials:
                 active[:start] = old["active"]
                 loss[:start] = old["loss"]
                 ok[:start] = old["ok"]
-            for i in range(start, n):
-                t = done[i]
-                r = t["result"]
-                if r.get("status") == STATUS_OK and r.get("loss") is not None \
-                        and np.isfinite(r["loss"]):
-                    loss[i] = r["loss"]
-                    ok[i] = True
-                _parse_doc_row(t["misc"]["vals"], cs, vals, active, i)
+            if n > start:
+                with _trace.span("trials.parse"):
+                    for i in range(start, n):
+                        t = done[i]
+                        r = t["result"]
+                        if r.get("status") == STATUS_OK \
+                                and r.get("loss") is not None \
+                                and np.isfinite(r["loss"]):
+                            loss[i] = r["loss"]
+                            ok[i] = True
+                        _parse_doc_row(t["misc"]["vals"], cs, vals, active,
+                                       i)
+                _ROWS_PARSED.inc(n - start)
             out = dict(vals=vals, active=active, loss=loss, ok=ok,
                        tids=new_tids)
             self._soa_cache = (cs, out)

@@ -148,6 +148,7 @@ from .tpe import (
     _default_prior_weight,
     _insert_row,
     _lowering,
+    _pool_bytes,
     stack_noise,
     wait_prewarm,
 )
@@ -620,15 +621,6 @@ class _Segment:
             tel = (flat[o:o + r].reshape(lanes, s),
                    flat[o + r:o + 2 * r].reshape(lanes, s).astype(np.int64))
         return vals, active, raw, flat[-lanes:].astype(np.int64), tel
-
-
-def _pool_bytes(graph):
-    """Bytes of the caching allocator's segments in ``graph``'s private
-    memory pool.  (``torch.cuda.memory_reserved`` does not tell it: across
-    a capture it can stay put, or drop when a cached graph is evicted.)"""
-    pool = tuple(graph.pool())
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id", ())) == pool)
 
 
 def _build_segment(cs, kern, eval_one, n_startup, gamma, prior_weight,

@@ -13,7 +13,8 @@ device)``, with an append cursor:
   they are no longer a prefix of the history's tids (a deleted or
   inserted trial), the ring takes ONE full re-upload, counted in
   ``rebuilds``; a history that holds every resident tid but in another
-  order raises :class:`HistoryOrderError` instead.
+  order raises :class:`HistoryOrderError` instead.  A full re-upload of
+  a solo ring is the span ``history.rebuild`` (``obs/trace.py``).
 * **Growth**: a device pad-copy to the next power-of-two capacity, zero
   host→device bytes; :func:`pregrow` does it ahead of the bucket flip.
 * **In-flight fantasies**: constant-liar rows of NEW/RUNNING trials go
@@ -56,6 +57,7 @@ import numpy as np
 import torch
 
 from .obs import metrics as _metrics
+from .obs import trace as _trace
 from .obs.events import EVENTS
 
 __all__ = ["device_history", "pregrow", "forget", "generation",
@@ -289,8 +291,9 @@ def device_history(trials, cs, h, n_cap, fantasies=None, device=None,
         if not _coherent(st, cs, h, p):
             _check_tid_order(st, cs, h, p)
             cap = max(n_cap, st.cap if st is not None else 0)
-            st = _Resident(cs, cap, n, h["tids"], _put(_padded_history(h, cap),
-                                                       dev))
+            with _trace.span("history.rebuild"):
+                st = _Resident(cs, cap, n, h["tids"],
+                               _put(_padded_history(h, cap), dev))
             if states is not None:
                 states[key] = st
             _bump(rebuilds=1, upload_bytes=cap * _row_bytes(p))

@@ -66,7 +66,9 @@ batch, ``noise=`` calls, ``dispatch.ShardedTpeKernel`` and the CPU run
 eagerly.  Always-on counters: ``tpe.graph.captures``,
 ``tpe.graph.replays``, ``tpe.graph.capture_ms`` and
 ``tpe.graph.eager_steps`` (steps that would replay but ran eagerly after
-a failed capture).
+a failed capture), and the gauge ``tpe.graph.pool_bytes`` (the memory
+pool of the graph captured last, by :func:`_pool_bytes`, which device
+mode's segments read too).
 """
 
 from __future__ import annotations
@@ -157,6 +159,7 @@ _GRAPH_CAPTURES = _metrics_registry().counter("tpe.graph.captures")
 _GRAPH_REPLAYS = _metrics_registry().counter("tpe.graph.replays")
 _GRAPH_CAPTURE_MS = _metrics_registry().counter("tpe.graph.capture_ms")
 _GRAPH_EAGER_STEPS = _metrics_registry().counter("tpe.graph.eager_steps")
+_GRAPH_POOL_BYTES = _metrics_registry().gauge("tpe.graph.pool_bytes")
 
 
 class _ContGroup:
@@ -991,6 +994,16 @@ def wait_prewarm():
         t.join()
 
 
+def _pool_bytes(graph):
+    """Bytes of the caching allocator's segments in ``graph``'s private
+    memory pool (the hosted step's graphs and device mode's).
+    (``torch.cuda.memory_reserved`` does not tell it: across a capture it
+    can stay put, or drop when a cached graph is evicted.)"""
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
 class _HostedCaptureError(RuntimeError):
     """A capture of the hosted step failed."""
 
@@ -1067,11 +1080,13 @@ class _HostedStep:
             raise _HostedCaptureError(str(e)) from e
         self.graph, self.row = graph, row
         ms = (perf_counter() - t0) * 1e3
+        pool = _pool_bytes(graph)
         _GRAPH_CAPTURES.inc()
         _GRAPH_CAPTURE_MS.inc(ms)
+        _GRAPH_POOL_BYTES.set(pool)
         logging.getLogger(__name__).info(
-            "captured the hosted TPE step (n_cap=%d) in %.1f ms",
-            self.kern.n_cap, ms)
+            "captured the hosted TPE step (n_cap=%d) in %.1f ms; its "
+            "graph's memory pool holds %d bytes", self.kern.n_cap, ms, pool)
 
     def run(self, hist, seed):
         """The row ``f32[P]`` proposed for the padded history ``hist``

@@ -10,6 +10,10 @@ half: ``tests/test_torch_hosted_graph_policy.py``).
 * Two threads suggesting on one kernel, one of them on a stream of its
   own, and a dispatch made before the previous handle's fetch, each get
   their own rows.
+* The north star's step: the flagship space at ``n_dims`` 50 (53
+  parameters) resumed at 1,000 finished trials, 10,000 candidates, bucket
+  1,024: replayed proposals equal the eager step's bits, and the gauge
+  ``tpe.graph.pool_bytes`` reads the pool of the graph just captured.
 """
 
 import importlib.util
@@ -43,12 +47,12 @@ def _counter(name):
     return registry().snapshot()["counters"].get(name, 0.0)
 
 
-def _eager_row(cs, h, seed):
+def _eager_row(cs, h, seed, n_cand=24):
     """The eager step's row for history ``h`` (``Trials.history``) under
     ``seed``, on the kernel the hosted step uses."""
     n_cap = tpe._bucket(h["vals"].shape[0])
     dev = resolve_device(cs.device)
-    kern = tpe.get_kernel(cs, n_cap, 24, 25, device=dev)
+    kern = tpe.get_kernel(cs, n_cap, n_cand, 25, device=dev)
     hist = [torch.as_tensor(a, device=dev)
             for a in _padded_history(h, n_cap)]
     gen = make_generator(dev, int(seed) % (2 ** 32))
@@ -191,3 +195,45 @@ def test_dispatch_before_the_previous_fetch_gets_its_own_rows(two_histories):
         np.testing.assert_array_equal(tpe._force_rows(handle)[0][0],
                                       want[(id(t), s)])
     assert _counter("tpe.graph.replays") - replays0 == len(handles)
+
+
+@pytest.mark.cuda
+def test_flagship_step_at_bucket_1024_replays_the_eager_bits():
+    from portbench import program
+    from portbench.reference import space as rspace
+
+    mod = _space_module("flagship")
+    n_dims, n_history, n_cand = 50, 1000, 10000
+    ps = rspace.params(mod.build(rspace.PLAIN_HP, n_dims))
+    rng = np.random.default_rng(2 ** 31 + 17)
+    vals, live = rspace.sample(ps, n_history, rng)
+    loss = rng.normal(0.0, 1.0, n_history)
+    trials = program.trials_with(program.history_docs(ps, vals, live, loss,
+                                                      range(n_history)))
+    space = mod.build(hp, n_dims)
+    domain = base.Domain(lambda cfg: 0.0, space)
+    cs = domain.cs
+    _fresh(cs)
+    h = trials.history(cs)
+    assert len(ps) == cs.n_params == 53
+    captures0 = _counter("tpe.graph.captures")
+    seeds = [2 ** 31 + 7 * i for i in range(4)]
+    for i, seed in enumerate(seeds):
+        want, n_cap = _eager_row(cs, h, seed, n_cand)
+        handle = tpe.suggest_dispatch([n_history], domain, trials, seed,
+                                      n_EI_candidates=n_cand)
+        got = tpe._force_rows(handle)[0][0]
+        assert n_cap == 1024
+        assert got.tobytes() == want.tobytes(), (i, got, want)
+        if i == 1:
+            # The kernel's second step captured its graph.
+            assert _counter("tpe.graph.captures") - captures0 == 1
+            kern = tpe.get_kernel(cs, n_cap, n_cand, 25,
+                                  device=resolve_device(cs.device))
+            step = kern.hosted[(GAMMA, PRIOR_WEIGHT)]
+            pool = tpe._pool_bytes(step.graph)
+            assert pool > 0
+            assert registry().snapshot()["gauges"][
+                "tpe.graph.pool_bytes"] == float(pool)
+    assert _counter("tpe.graph.captures") - captures0 == 1
+    _fresh(cs)
