@@ -11,7 +11,8 @@ Phases, each fatal on failure:
                (one ``nvcc`` per source, started together): K1 (f32) and
                K2 (bf16) in ``ei_scores.cu``, K3 (tensor cores) in
                ``ei_scores_mxu.cu``, the lanes' draw in
-               ``lane_uniforms.cu``.
+               ``lane_uniforms.cu``, the split sets' weights in
+               ``set_weights.cu``.
 2. ei_kernel   hold each kernel against its plain PyTorch version on the
                card at the TPE step's shape (31 columns x 10,000 candidates
                x (26 + 1025) components), at the 2,048 bucket's shape
@@ -26,6 +27,12 @@ Phases, each fatal on failure:
                bytes it writes), the twin, and the per-lane
                ``torch.rand`` calls and stacks it replaces, eager and
                replayed from a graph with their generators registered.
+               Then ``set_weights``: both split sets' weights of one
+               column group at the hosted (1 x 1,024 x 31) and the fleet
+               (64 x 1,024 x 31) shapes against the twin bit for bit,
+               timed beside its bound (the bytes it moves) and the twin
+               (the ``torch.cumsum`` composition it replaces), eager and
+               replayed from a graph.
 3. suggest_step  one TPE step at full width (50-dim space, 1,000-trial
                history, 10,000 candidates), a few times, then three more
                under ``torch.profiler`` (device-busy share, launches and
@@ -316,6 +323,7 @@ from hyperopt_tpu_torch.obs import trace as obs_trace  # noqa: E402
 from hyperopt_tpu_torch.obs.events import EVENTS  # noqa: E402
 from hyperopt_tpu_torch.ops import ei_scores as ei_mod  # noqa: E402
 from hyperopt_tpu_torch.ops import lane_uniforms  # noqa: E402
+from hyperopt_tpu_torch.ops import set_weights as sw_op  # noqa: E402
 from hyperopt_tpu_torch.space import (  # noqa: E402
     CATEGORICAL, LOGNORMAL, LOGUNIFORM, NORMAL, QLOGNORMAL, QNORMAL,
     QLOGUNIFORM, RANDINT, compile_space, make_generator)
@@ -902,6 +910,78 @@ def phase_lane_uniforms(dev):
             "bound_by": "bytes", "plain_ms": plain_ms,
             "library_ms": library_ms, "library_graph_ms": replay_ms,
             "bitwise": True}))
+
+
+def phase_set_weights(dev):
+    """Both split sets' weights of the flagship's density group (31
+    columns, bucket 1,024, 1,000 rows filled) at 1 and 64 lanes: the
+    kernel against its twin (``set_weights_reference``, the
+    ``torch.cumsum`` composition it replaces) bit for bit; CUDA-event ms
+    eager and replayed from a CUDA graph (``graph_ms``, as the captured
+    step runs it) beside its bound (the bytes it moves at
+    ``HBM_BYTES_PER_S``: act read once, both sets' masks and weights
+    written) and the twin's ms, eager (``plain_ms``) and replayed from a
+    CUDA graph (``library_ms``, as the captured step ran it).  Prints one ``set_weights json:`` line per
+    lane count, and the kernel's registers from the build report."""
+    rows, cols, filled, lf = 1024, 31, 1000, 25
+    log = ei_mod.build_log.get("set_weights", "")
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    gen = torch.Generator(device=dev).manual_seed(27)
+    for lanes in (1, 64):
+        live = torch.arange(rows, device=dev) < filled
+        u = torch.rand((lanes, rows), generator=gen, device=dev)
+        below = live & (u < 0.025)
+        above = live & ~below
+        act = live[:, None] & (torch.rand((lanes, rows, cols), generator=gen,
+                                          device=dev) < 0.9)
+
+        def kernel():
+            return sw_op.set_weights(below, above, act, lf)
+
+        def twin():
+            return [sw_op.set_weights_reference(s, act, lf)
+                    for s in (below, above)]
+
+        for got, want in zip(kernel(), twin()):
+            for g, w in zip(got, want):
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                if not torch.equal(g, w):
+                    fail(f"set_weights: {lanes} lanes: the kernel differs "
+                         f"from the twin")
+        cells = lanes * rows * cols
+        moved = cells * (1 + 2 * (1 + 4)) + 2 * lanes * rows + 2 * 8 * (
+            lanes * cols)
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(twin)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            twin()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            twin()
+        library_ms = cuda_ms(graph.replay)
+        # The kernel as the captured step runs it: LAUNCHES_PER_WINDOW
+        # launches in one graph, so no host time per launch is in it.
+        kernel_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(kernel_graph):
+            for _ in range(LAUNCHES_PER_WINDOW):
+                kernel()
+        graph_ms = cuda_ms(kernel_graph.replay, inner=1) / LAUNCHES_PER_WINDOW
+        torch.cuda.synchronize()
+        print(f"set_weights: {lanes} x {rows} x {cols}, {moved} bytes: "
+              f"kernel {ms:.4f} ms eager, {graph_ms:.4f} in a graph (bound "
+              f"{bound_ms:.4f}, bytes), twin {plain_ms:.4f} eager, "
+              f"{library_ms:.4f} replayed; registers {regs}; bitwise equal "
+              f"to the twin")
+        print("set_weights json: " + json.dumps({
+            "lanes": lanes, "rows": rows, "cols": cols, "bytes": moved,
+            "ms": ms, "graph_ms": graph_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "plain_ms": plain_ms,
+            "library_ms": library_ms, "registers": regs, "bitwise": True}))
 
 
 def phase_suggest_step(dev):
@@ -4676,6 +4756,7 @@ def main():
     timed("build", phase_build)
     kernels = timed("ei_kernel", phase_ei_kernel, dev)
     timed("lane_uniforms", phase_lane_uniforms, dev)
+    timed("set_weights", phase_set_weights, dev)
     hosted = timed("suggest_step", phase_suggest_step, dev)
     fmin_launches = timed("fmin", phase_fmin, dev)
     liar_launches = timed("liar_batch", phase_liar_batch, dev)

@@ -1,5 +1,6 @@
 """Compute ops of the TPE step: plain PyTorch, plus the hand-written CUDA
-EI kernel in :mod:`.ei_scores`."""
+kernels of :mod:`.ei_scores`, :mod:`.lane_uniforms` and
+:mod:`.set_weights`."""
 
 from .gmm import (  # noqa: F401
     gmm_log_qmass,

@@ -22,9 +22,10 @@ Three lowerings of the same function, as in the JAX package:
 :func:`ei_scores` launches the kernel for CUDA tensors and uses
 :func:`ei_scores_reference` for CPU tensors; there is no other route.  The
 kernels are compiled with ``nvcc`` at first use, one plain-C shared library
-per source, all sources at once (``lane_uniforms.py``'s kernel among
-them), under ``build/hyperopt_tpu_torch/`` (named
-by the hash of the source), and bound with ``ctypes``.  The build holds a
+per source, all sources at once (``lane_uniforms.py``'s and
+``set_weights.py``'s kernels among them), under
+``build/hyperopt_tpu_torch/`` (named by the hash of the source), and bound
+with ``ctypes``.  The build holds a
 module lock and a lock file in the build directory, so threads, and
 processes sharing the checkout (a driver and its workers), that first reach
 a kernel together build it once; the launch counts are bumped under a lock
@@ -56,11 +57,12 @@ CAPTURED_ENTRY_POINTS = (
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-# The port's kernel libraries, built together: the EI kernels and
-# ops/lane_uniforms.py's draw.
+# The port's kernel libraries, built together: the EI kernels,
+# ops/lane_uniforms.py's draw and ops/set_weights.py's weights.
 _SOURCES = {"ei_scores": _CSRC / "ei_scores.cu",
             "ei_scores_mxu": _CSRC / "ei_scores_mxu.cu",
-            "lane_uniforms": _CSRC / "lane_uniforms.cu"}
+            "lane_uniforms": _CSRC / "lane_uniforms.cu",
+            "set_weights": _CSRC / "set_weights.cu"}
 # Lowering -> (library, C entry point).  Every entry takes the same
 # arguments.
 _ENTRIES = {"f32": ("ei_scores", "ei_scores_launch"),
@@ -73,6 +75,9 @@ _EI_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGTYPES = {entry: (lib, _EI_ARGTYPES) for lib, entry in _ENTRIES.values()}
 _ARGTYPES["lane_uniforms_launch"] = (
     "lane_uniforms", [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES["set_weights_launch"] = (
+    "set_weights", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_void_p])
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hyperopt_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

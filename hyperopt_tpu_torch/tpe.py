@@ -95,7 +95,7 @@ from .ops.ei_scores import build_seconds as ei_build_seconds
 from .ops.fixed_order import prefix_sum, tree_sum
 from .ops.gmm import (gmm_log_qmass, gmm_sample, gumbel_pick, icdf_pick,
                       onehot_lookup, truncate_mixture)
-from .ops.parzen import forgetting_weights
+from .ops.set_weights import set_weights
 from .ops.step_ei import ei_argmax_stats, fused_parzen_fit
 from .space import (
     _MAX_RANDINT_RANGE,
@@ -426,16 +426,6 @@ class _TpeKernel:
         below = below & ok
         return below, ok & ~below
 
-    def _set_weights(self, set_mask, act):
-        """Per-column observation weights for one split set:
-        ``(mask[..., N, C], weights[..., N, C], n_set[..., C])``; linear
-        forgetting by recency rank within the set, zero elsewhere."""
-        m = set_mask[..., None] & act
-        n_set = torch.sum(m, dim=-2)
-        rank_in = torch.cumsum(m.to(torch.int64), dim=-2) - 1
-        w = forgetting_weights(rank_in, n_set[..., None, :], self.lf)
-        return m, torch.where(m, w, torch.zeros_like(w)), n_set
-
     # -- continuous columns --------------------------------------------------
 
     def _cont_fit(self, gt, vals, active, below, above, prior_weight):
@@ -448,11 +438,11 @@ class _TpeKernel:
         cap_b = min(self.lf, self.n_cap) + 1
         cap_a = self.n_cap + 1
 
-        def set_obs(set_mask):
-            m, w, n_set = self._set_weights(set_mask, act)
+        def set_obs(m, w, n_set):
             return torch.where(m, z, torch.full_like(z, math.inf)), w, n_set
 
-        return fused_parzen_fit(*set_obs(below), *set_obs(above),
+        sb, sa = set_weights(below, above, act, self.lf)
+        return fused_parzen_fit(*set_obs(*sb), *set_obs(*sa),
                                 gt.prior_mu, gt.prior_sigma, prior_weight,
                                 cap_b, cap_a)
 
@@ -538,11 +528,10 @@ class _TpeKernel:
         onehot = (idx[..., None] == ct.options).to(torch.float32)
         pw = _lane_value(prior_weight, 1)
 
-        def log_post(set_mask):
+        def log_post(_, w, n_set):
             # Weighted counts + prior pseudocounts; prior strength
             # 'const': n_options·prior_weight (decays as 1/N), 'sqrt':
             # prior_weight·sqrt(1+N) (decays as 1/sqrt(N)).
-            _, w, n_set = self._set_weights(set_mask, act)
             counts = tree_sum(w[..., None] * onehot, dim=-3)  # [..., D, K]
             if self.cat_prior == "const":
                 strength = pw * ct.nopts
@@ -551,8 +540,9 @@ class _TpeKernel:
             pseudo = counts + ct.priors * strength[..., None]
             return torch.log(pseudo / tree_sum(pseudo, dim=-1, keepdim=True))
 
-        lpb = log_post(below)
-        lpa = log_post(above)
+        sb, sa = set_weights(below, above, act, self.lf)
+        lpb = log_post(*sb)
+        lpa = log_post(*sa)
         if self.comp_sampler == "gumbel":
             cand = gumbel_pick(u, lpb)
         else:

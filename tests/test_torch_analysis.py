@@ -435,7 +435,8 @@ def test_cp_declared_entry_points_of_the_port_resolve():
     assert set(declaring) == {
         f"hyperopt_tpu_torch/{m}.py" for m in (
             "tpe", "space", "dispatch", "ops/ei_scores", "ops/fixed_order",
-            "ops/gmm", "ops/lane_uniforms", "ops/parzen", "ops/step_ei")}
+            "ops/gmm", "ops/lane_uniforms", "ops/parzen", "ops/set_weights",
+            "ops/step_ei")}
     assert {"_TpeKernel._suggest_lanes", "_TpeKernel.draw_noise",
             "stack_noise", "_insert_row"} <= set(declaring[
                 "hyperopt_tpu_torch/tpe.py"])
